@@ -1,0 +1,390 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's TPC-C New-Order main path on one CUDA card.
+
+    python3 chip_smoke.py
+
+From the root of a checkout, on a machine with an NVIDIA H100. It builds the
+two CUDA kernels of the port from ``src/repro_torch/kernels/csrc`` (one
+``nvcc`` per source, started together, into ``build/kernels/``), then:
+
+  1. prints the card and its power limit, and the build time;
+  2. holds each kernel bit-exact against its plain torch version on the
+     card, on the main path's first real admission problem and on a
+     heavily contended one of the same shape, and times both (after the
+     main path, also on the problem its next batch would meet, whose
+     residual walk has work: those are the times of the kernels' record);
+  3. merge regime: the New-Order closed loop, then the audit;
+  4. escrow regime through the kernels (sparse hot set, admission="kernel",
+     effects="fused": the megastep kernel), then the strict audit; the
+     same run with effects="scan" goes through the escrow_admit kernel;
+  5. the same escrow run through the plain path on the card (admission and
+     effects "scan"), which must end bit-equal to phase 4;
+  6. a small run through the kernels on the card against the plain path
+     on the CPU, bit-equal.
+
+The deployment is TPC-C at the specification's per-warehouse cardinalities
+(TPC-C standard specification, clause 4.3.3.1: 10 districts, 3000 customers
+per district, 100,000 items, up to 15 lines per order) with the repo's ring
+of 8192 orders per district, 64 warehouses on the card as one shard. The
+traffic is New-Order batches of 256 with 1% remote lines (spec), 32 batches,
+an anti-entropy drain every 8 batches and an escrow refresh at every drain.
+
+Launch counters are set to 0 just before phases 3-4 (the main path) and
+read just after. The second-to-last line of output is the kernels' JSON
+record; the last line is the device record. Any failure exits non-zero;
+so does a machine without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+WAREHOUSES = 64
+BATCH = 256
+N_BATCHES = 32
+MERGE_EVERY = 8
+REFRESH_EVERY = 1
+REMOTE_FRAC = 0.01
+ITEM_SKEW = 1.2          # the escrow demo's Zipfian item profile
+STOCK_MULTIPLIER = 20    # the escrow demo's inflated initial stock
+SEED = 0
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
+SPIN_CYCLES = 100_000_000   # ~50 ms at the H100's 1.98 GHz boost clock
+
+
+def _time_ms(fn, reps: int, fresh=None) -> float:
+    """Mean device time of ``fn()`` over ``reps`` calls, by CUDA events
+    around each call. A spin on the card runs first, long enough for the
+    host to queue every call behind it, so a call that does not
+    synchronise is timed by the card's work alone, not by the host's
+    launch overhead. With ``fresh = (buf, src)``, ``buf`` is refilled from
+    ``src`` before each call, outside the timed interval (a kernel that
+    updates its ``avail0`` in place gets a fresh vector, as on the main
+    path)."""
+    import torch
+
+    def call():
+        if fresh is not None:
+            fresh[0].copy_(fresh[1])
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        fn()
+        ev[1].record()
+        return ev
+
+    call()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    events = [call() for _ in range(reps)]
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in events) / reps
+
+
+def _max_abs_err(got, want) -> float:
+    err = 0.0
+    for x, y in zip(got, want):
+        if x.dtype != y.dtype or x.shape != y.shape:
+            raise AssertionError(f"dtype/shape mismatch {x.dtype} {y.dtype}")
+        d = (x.double() - y.double()).abs()
+        err = max(err, float(d.max()) if d.numel() else 0.0)
+    return err
+
+
+def _nbytes(*xs) -> int:
+    return sum(x.numel() * x.element_size() for x in xs)
+
+
+def _same(a, b) -> list[str]:
+    import torch
+    return [f for f, x, y in zip(a._fields, a, b) if not torch.equal(x, y)]
+
+
+def admission_problem(eng, state, esc, batch):
+    """The megastep problem ``(args, kw)`` the escrow main path builds for
+    ``batch`` against ``state`` and ``esc`` (its first four arguments are
+    the admission problem)."""
+    from repro_torch.txn import tpcc
+
+    W = eng.scale.n_warehouses
+    avail0, slot = tpcc.sparse_admission_problem(
+        state.s_quantity, esc.keys, esc.shares[0] - esc.spent[0],
+        batch.supply_w, batch.i_id, eng.scale.n_items, 0, W)
+    return tpcc.megastep_args(state, batch, eng.scale, avail0, slot,
+                              tpcc.order_line_valid(batch), batch.ts, 0, W)
+
+
+def main_path_batch(eng, index):
+    """Batch ``index`` of the escrow main path's stream (same seed)."""
+    import numpy as np
+
+    from repro_torch.txn.drivers import generate_neworder_stream
+
+    return generate_neworder_stream(
+        eng, batch_per_shard=BATCH, n_batches=index + 1,
+        remote_frac=REMOTE_FRAC, rng=np.random.default_rng(SEED),
+        item_skew=ITEM_SKEW)[index]
+
+
+def check_and_time(tag, args, kw, oracle=False):
+    """Each kernel against its plain version on the card on one problem
+    (and, with ``oracle``, the megastep against the definitional oracle
+    too), then both timed with CUDA events, and each kernel's bound from
+    the bytes this problem makes it move. Returns the row per kernel."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.escrow_admit import (
+        contention_gate, escrow_admit_cuda, residual_fcfs, residual_order)
+    from repro_torch.kernels.txn_megastep import (
+        MegastepOut, txn_megastep_cuda, txn_megastep_plain)
+
+    avail0, slot, qty, lv = args[:4]
+    fast, _, _ = contention_gate(*args[:4])
+    res_idx, n_res = residual_order(fast)
+    gate = (fast, res_idx, n_res)
+    n = int(n_res[0])
+    # the kernels update avail in place: each call gets a fresh copy
+    buf = avail0.clone()
+    admit = lambda: escrow_admit_cuda(buf, slot, qty, lv, *gate)
+    mega = lambda: txn_megastep_cuda(buf, slot, qty, lv, *gate, *args[4:],
+                                     **kw)
+    got_a = tuple(x.clone() for x in admit())
+    buf.copy_(avail0)
+    got_m = MegastepOut(*(x.clone() for x in mega()))
+    err_a = _max_abs_err(got_a, residual_fcfs(*args[:4], *gate))
+    err_m = _max_abs_err(got_m, txn_megastep_plain(*args[:4], *gate,
+                                                   *args[4:], **kw))
+    if oracle:
+        err_m = max(err_m, _max_abs_err(
+            got_m, MegastepOut(*ref.txn_megastep_ref(*args, **kw))))
+    print(f"parity [{tag}] n_res={n} aborts={int((~got_m.committed).sum())}"
+          f" escrow_admit max_abs_err={err_a} txn_megastep "
+          f"max_abs_err={err_m}")
+    if err_a or err_m:
+        raise AssertionError(f"kernel disagrees with plain version: {tag}")
+
+    # least bytes, each input read once and each output written once; the
+    # avail vector is updated in place, so only the cells the lines name
+    # count (4 bytes read, 4 written each)
+    res = torch.zeros_like(fast)
+    res[res_idx[:n].long()] = True
+    res_lines = lv & res[:, None]
+    cells = lambda m: 8 * int(torch.unique(slot[m]).numel())
+    # escrow_admit: the residual lines (slot, qty, valid), their indices and
+    # count, the fast mask in and the verdicts out
+    bytes_a = cells(res_lines) + slot.shape[1] * n * 9 + n * 4 + 4 \
+        + _nbytes(fast) + _nbytes(got_a[0])
+    # txn_megastep: the whole window (of res_idx only the first n) and every
+    # product but avail, the dense slabs included
+    out_bytes = sum(_nbytes(x) for f, x in zip(got_m._fields, got_m)
+                    if f != "avail")
+    bytes_m = cells(lv) + _nbytes(*args[1:], *gate) - 4 * (len(fast) - n) \
+        + out_bytes
+    row = dict(
+        escrow_admit=dict(
+            max_abs_err=err_a, n_res=n,
+            ms=_time_ms(admit, 50, (buf, avail0)),
+            plain_ms=_time_ms(lambda: residual_fcfs(*args[:4], *gate), 3),
+            bound_ms=bytes_a / HBM_BYTES_PER_S * 1e3),
+        txn_megastep=dict(
+            max_abs_err=err_m, n_res=n,
+            ms=_time_ms(mega, 50, (buf, avail0)),
+            plain_ms=_time_ms(lambda: txn_megastep_plain(
+                *args[:4], *gate, *args[4:], **kw), 3),
+            bound_ms=bytes_m / HBM_BYTES_PER_S * 1e3))
+    print(f"timing [{tag}] {json.dumps(row)}")
+    return row
+
+
+def kernel_parity(eng, state, esc):
+    """Phase 2: the main path's first admission problem, and a contended
+    one of its shape (hot headroom 0..11), checked against the plain
+    versions; returns the larger error per kernel."""
+    import torch
+
+    args, kw = admission_problem(eng, state, esc, main_path_batch(eng, 0))
+    K = esc.keys.shape[0]
+    contended = args[0].clone()
+    contended[:K] = torch.remainder(torch.arange(K, device=contended.device),
+                                    12).to(torch.int32)
+    first = check_and_time("main path batch 0", args, kw)
+    hard = check_and_time("contended", (contended,) + args[1:], kw,
+                          oracle=True)
+    return {k: max(first[k]["max_abs_err"], hard[k]["max_abs_err"])
+            for k in first}
+
+
+def escrow_run(scale, admission, effects, device=None, batch=BATCH,
+               n_batches=N_BATCHES, audit=True):
+    import torch
+
+    from repro_torch.txn import assert_audit, init_state, run_loop
+    from repro_torch.txn.engine import single_host_engine
+
+    eng = single_host_engine(scale, stock_invariant="strict",
+                             admission=admission, effects=effects,
+                             device=device)
+    state = init_state(scale, seed=SEED, device=eng.device)
+    state.s_quantity.mul_(STOCK_MULTIPLIER)
+    q0 = state.s_quantity.clone()
+    state, esc, st = run_loop(
+        eng, state, batch_per_shard=batch, n_batches=n_batches,
+        remote_frac=REMOTE_FRAC, merge_every=MERGE_EVERY,
+        refresh_every=REFRESH_EVERY, item_skew=ITEM_SKEW, seed=SEED)
+    rep = ""
+    if audit:
+        t0 = time.perf_counter()
+        rep = assert_audit(state, escrow=esc, initial_stock=q0,
+                           strict_stock=True).describe()
+        rep += f" in {time.perf_counter() - t0:.1f} s"
+    return state, esc, st, rep
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.stdout.reconfigure(line_buffering=True)
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.escrow_admit import escrow_admit_cuda
+    from repro_torch.kernels.txn_megastep import txn_megastep_cuda
+    from repro_torch.txn import (TPCCScale, assert_audit, init_state,
+                                 run_loop)
+    from repro_torch.txn.engine import single_host_engine
+
+    # -- phase 1: the card and the build -------------------------------------
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"device: {name} (torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda})")
+    print(f"nvidia-smi: {smi}")
+    t0 = time.perf_counter()
+    build.build_all()
+    print(f"build: {time.perf_counter() - t0:.1f} s "
+          f"({', '.join(build.KERNELS)})")
+
+    scale = TPCCScale.spec_scale(WAREHOUSES)
+    tables = init_state(scale, seed=SEED)
+    print(f"deployment: {WAREHOUSES} spec-scale warehouses, "
+          f"{sum(x.numel() * x.element_size() for x in tables) / 1e9:.2f} GB "
+          f"of tables on the card")
+
+    # -- phase 2: kernel parity at the main path's shapes --------------------
+    eng = single_host_engine(scale, stock_invariant="strict",
+                             admission="kernel", effects="fused")
+    tables.s_quantity.mul_(STOCK_MULTIPLIER)
+    parity_err = kernel_parity(eng, tables, eng.init_escrow(tables))
+    del tables
+
+    # -- phases 3-4: the main path, launch counts from 0 ---------------------
+    escrow_admit_cuda.launches = 0
+    txn_megastep_cuda.launches = 0
+    txn_megastep_cuda.residuals = None
+
+    merge = single_host_engine(scale)
+    state = init_state(scale, seed=SEED)
+    state, _, st = run_loop(merge, state, batch_per_shard=BATCH,
+                            n_batches=N_BATCHES, remote_frac=REMOTE_FRAC,
+                            merge_every=MERGE_EVERY, seed=SEED)
+    t0 = time.perf_counter()
+    rep = assert_audit(state).describe()
+    print(f"merge: {st.neworders} New-Orders committed, "
+          f"{st.throughput:,.0f} txn/s, {st.anti_entropy_rounds} "
+          f"anti-entropy rounds; {rep} in {time.perf_counter() - t0:.1f} s")
+    del state
+
+    s_fused, e_fused, m_fused, rep = escrow_run(scale, "kernel", "fused")
+    mega_launches = txn_megastep_cuda.launches
+    residuals = int(txn_megastep_cuda.residuals.sum())
+    print(f"escrow (megastep kernel): {m_fused.neworders} committed, "
+          f"{m_fused.aborts} aborts, {m_fused.cold_rejects} cold rejects, "
+          f"{m_fused.refreshes} refreshes, {m_fused.throughput:,.0f} txn/s;"
+          f" txn_megastep launches={mega_launches} sum(n_res)={residuals};"
+          f" {rep}")
+    if mega_launches < N_BATCHES or residuals <= 0:
+        raise AssertionError("the escrow loop did not run the megastep "
+                             "kernel on every batch with residual work")
+
+    s_adm, e_adm, m_adm, rep = escrow_run(scale, "kernel", "scan",
+                                          audit=False)
+    launches = {"escrow_admit": escrow_admit_cuda.launches,
+                "txn_megastep": txn_megastep_cuda.launches}
+    print(f"escrow (escrow_admit kernel): {m_adm.neworders} committed, "
+          f"{m_adm.aborts} aborts, {m_adm.throughput:,.0f} txn/s; "
+          f"escrow_admit launches={launches['escrow_admit']}")
+    print(f"main-path launches: {json.dumps(launches)}")
+    for k, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"{k} was not launched on the main path")
+    bad = _same(s_fused, s_adm) + _same(e_fused, e_adm)
+    if bad:
+        raise AssertionError(f"megastep path != escrow_admit path: {bad}")
+
+    # the kernels on the problem the main path's next batch meets at the
+    # end of the run (stock run down, so the walk has residual work): the
+    # times and bounds of the kernels' record
+    timing = check_and_time("main path after the run", *admission_problem(
+        eng, s_fused, e_fused, main_path_batch(eng, N_BATCHES)))
+    if timing["txn_megastep"]["n_res"] <= 0:
+        raise AssertionError("the timed problem has no residual work")
+
+    # -- phase 5: the same escrow run through the plain path on the card -----
+    s_plain, e_plain, m_plain, _ = escrow_run(scale, "scan", "scan",
+                                              audit=False)
+    counts = lambda m: (m.neworders, m.aborts, m.cold_rejects, m.refreshes,
+                        m.anti_entropy_rounds)
+    bad = _same(s_fused, s_plain) + _same(e_fused, e_plain)
+    if bad or len({counts(m) for m in (m_fused, m_adm, m_plain)}) != 1:
+        raise AssertionError(f"kernel path != plain path: {bad} "
+                             f"{counts(m_fused)} {counts(m_plain)}")
+    print(f"plain path on the card: bit-equal state and escrow, counts "
+          f"{counts(m_plain)}, {m_plain.throughput:,.0f} txn/s")
+    del s_fused, s_adm, s_plain
+
+    # -- phase 6: small input, kernels on the card vs plain on the CPU -------
+    small = TPCCScale(n_warehouses=2, districts=2, customers=8, n_items=400,
+                      order_capacity=64)
+    sk, ek, mk, _ = escrow_run(small, "kernel", "fused", device="cuda",
+                               batch=16, n_batches=6)
+    sc, ec, mc, _ = escrow_run(small, "scan", "scan", device="cpu",
+                               batch=16, n_batches=6, audit=False)
+    cpu = lambda t: type(t)(*(x.cpu() for x in t))
+    bad = _same(cpu(sk), sc) + _same(cpu(ek), ec)
+    if bad or counts(mk) != counts(mc):
+        raise AssertionError(f"small run: card != CPU plain path: {bad}")
+    print(f"small run: card kernels == CPU plain path, counts {counts(mk)}")
+
+    routes = {"escrow_admit": "src/repro_torch/kernels/csrc/escrow_admit.cu",
+              "txn_megastep": "src/repro_torch/kernels/csrc/txn_megastep.cu"}
+    replaces = {"escrow_admit": "src/repro/kernels/escrow_admit.py:184",
+                "txn_megastep": "src/repro/kernels/txn_megastep.py:255"}
+    record = {"kernels": [
+        {"name": k, "route": "cuda", "source": routes[k],
+         "replaces": replaces[k], "launches": launches[k],
+         "max_abs_err": max(parity_err[k], timing[k]["max_abs_err"]),
+         "ms": timing[k]["ms"],
+         "plain_ms": timing[k]["plain_ms"], "bound_ms": timing[k]["bound_ms"],
+         "bound_by": "bytes", "library_ms": None}
+        for k in build.KERNELS]}
+    print(f"nvidia-smi: {smi}")
+    print(json.dumps(record))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

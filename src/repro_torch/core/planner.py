@@ -1,0 +1,149 @@
+"""Coordination planner — the paper's analysis applied to a runtime state tree.
+
+This is what makes coordination avoidance a *first-class framework feature*
+rather than a database-only result: every mutable element of the training or
+serving runtime (gradient accumulators, optimizer moments, step counters,
+metric counters, data cursors, loss scale, ID allocators, checkpoint
+manifests) is registered as a :class:`StateSpec` — (lattice, ops, invariants).
+The planner runs the I-confluence analyzer over each spec and classifies it:
+
+  COORDINATION_FREE  -> updated locally per replica; reconciled by an
+                        asynchronous/deferred merge (paper Fig. 1);
+  ESCROW             -> non-confluent but amortizable via pre-partitioned
+                        budgets (paper §8);
+  COORDINATION_REQUIRED -> a synchronous collective on the critical path.
+
+The port's copy: ``repro_torch.txn.engine.Engine`` consumes the plan to pick
+its stock regime. The training/serving state registries of the reference
+belong to the model analogue and are not part of this copy.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Optional, Sequence
+
+from .analyzer import Strategy, Verdict, classify
+from .invariants import Invariant
+from .txn import Op
+
+
+class CoordClass(enum.Enum):
+    FREE = "coordination_free"
+    ESCROW = "escrow"
+    REQUIRED = "coordination_required"
+
+
+@dataclasses.dataclass(frozen=True)
+class StateSpec:
+    """One leaf (or leaf group) of the runtime state tree.
+
+    Attributes:
+      name: dotted path in the state tree (e.g. "optim.moments.mu").
+      lattice: registered lattice name used for merging this leaf
+        (see core/lattice.py registry). "sum" marks delta-merge leaves.
+      ops: the operations the runtime performs on the leaf each step.
+      invariants: application-level invariants constraining the leaf.
+      merge_every: for FREE leaves, how many local steps between merges
+        (1 = merge each step; k>1 = deferred/local-SGD style; 0 = only at
+        epoch/log/checkpoint boundaries).
+      note: free-form documentation.
+    """
+
+    name: str
+    lattice: str
+    ops: tuple[Op, ...]
+    invariants: tuple[Invariant, ...] = ()
+    merge_every: int = 1
+    note: str = ""
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanEntry:
+    spec: StateSpec
+    coord_class: CoordClass
+    verdicts: tuple[tuple[str, str, Verdict], ...]  # (inv, op, verdict)
+    strategy: Strategy
+
+    def describe(self) -> str:
+        return (f"{self.spec.name:32s} {self.coord_class.value:24s} "
+                f"strategy={self.strategy.value:20s} merge={self.spec.lattice}"
+                f"/every={self.spec.merge_every}")
+
+
+@dataclasses.dataclass(frozen=True)
+class CoordinationPlan:
+    entries: tuple[PlanEntry, ...]
+
+    def by_class(self, c: CoordClass) -> tuple[PlanEntry, ...]:
+        return tuple(e for e in self.entries if e.coord_class is c)
+
+    @property
+    def free(self) -> tuple[PlanEntry, ...]:
+        return self.by_class(CoordClass.FREE)
+
+    @property
+    def escrow(self) -> tuple[PlanEntry, ...]:
+        return self.by_class(CoordClass.ESCROW)
+
+    @property
+    def required(self) -> tuple[PlanEntry, ...]:
+        return self.by_class(CoordClass.REQUIRED)
+
+    def entry(self, name: str) -> PlanEntry:
+        for e in self.entries:
+            if e.spec.name == name:
+                return e
+        raise KeyError(name)
+
+    def summary(self) -> str:
+        lines = [f"coordination plan: {len(self.free)} free / "
+                 f"{len(self.escrow)} escrow / {len(self.required)} required"]
+        for e in self.entries:
+            lines.append("  " + e.describe())
+        return "\n".join(lines)
+
+    def critical_path_collectives(self) -> tuple[str, ...]:
+        """Names of leaves that demand a synchronous collective every step."""
+        return tuple(e.spec.name for e in self.required) + tuple(
+            e.spec.name for e in self.free
+            if e.spec.merge_every == 1 and e.spec.lattice == "sum")
+
+
+def plan_state(spec: StateSpec) -> PlanEntry:
+    """Classify one state leaf via the I-confluence analyzer."""
+    verdicts = []
+    worst: Optional[Verdict] = None
+    for op in spec.ops:
+        for inv in spec.invariants:
+            v = classify(inv, op)
+            verdicts.append((inv.name, op.kind.value, v))
+            if not v.coordination_free:
+                if worst is None or v.strategy is Strategy.SYNC_COORDINATION:
+                    worst = v
+
+    if worst is None:
+        coord = CoordClass.FREE
+        strategy = Strategy.NONE if not verdicts else verdicts[0][2].strategy
+    elif worst.strategy in (Strategy.ESCROW, Strategy.DEFERRED_ASSIGNMENT):
+        coord = CoordClass.ESCROW
+        strategy = worst.strategy
+    else:
+        coord = CoordClass.REQUIRED
+        strategy = Strategy.SYNC_COORDINATION
+    return PlanEntry(spec, coord, tuple(verdicts), strategy)
+
+
+def plan_states(specs: Sequence[StateSpec]) -> CoordinationPlan:
+    return CoordinationPlan(tuple(plan_state(s) for s in specs))
+
+
+def plan(specs: Sequence[StateSpec]) -> CoordinationPlan:
+    """The planner's public entry point: classify every declared state
+    element and return the CoordinationPlan a runtime consumes to choose its
+    per-element execution regime (repro_torch.txn.engine.Engine does this
+    at construction: FREE -> local merge path, ESCROW -> pre-partitioned
+    shares with amortized refresh, REQUIRED -> the synchronous 2PC engine).
+    """
+    return plan_states(specs)

@@ -1,0 +1,8 @@
+# Kernels of the New-Order slice, each a hand-written CUDA C++ kernel for
+# Hopper (csrc/, built at first use by build.py) beside its plain torch
+# version, with torch oracles in ref.py and public entries in ops.py:
+#   escrow_admit.py — contention gate + residual FCFS escrow admission
+#   txn_megastep.py — admission + committed effects + RAMP stamps
+from . import ops, ref
+from .escrow_admit import escrow_admit_cuda
+from .txn_megastep import MegastepOut, txn_megastep_cuda

@@ -1,0 +1,51 @@
+"""Public entries for the slice's two kernels.
+
+Each entry runs the contention gate as torch ops and then sends the
+problem where its tensors lie: a CPU tensor goes to the plain torch
+version, a CUDA tensor to the hand-written kernel. There is no other path.
+On the card the kernel updates ``avail0`` in place, so callers pass a
+vector they no longer need (the engine builds a fresh one every batch).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .escrow_admit import (contention_gate, escrow_admit_cuda, residual_fcfs,
+                           residual_order, settle_fast)
+from .txn_megastep import MegastepOut, txn_megastep_cuda, txn_megastep_plain
+
+
+def escrow_admit(avail0, slot, qty, line_valid
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Two-level escrow admission: the gate, the residual FCFS walk, and one
+    scatter that settles the fast path's reservations. Bit-exact with the
+    sequential scan (``ref.escrow_admit_ref``).
+
+    avail0 [A] int32; slot/qty/line_valid [B, L].
+    Returns (committed [B] bool, avail [A] int32 after all reservations).
+
+    An all-fast batch is not a separate branch: its walk has ``n_res == 0``
+    and the settle scatter alone gives ``avail0 - demand``.
+    """
+    fast, _, _ = contention_gate(avail0, slot, qty, line_valid)
+    res_idx, n_res = residual_order(fast)
+    walk = escrow_admit_cuda if avail0.is_cuda else residual_fcfs
+    committed, avail = walk(avail0, slot, qty, line_valid, fast, res_idx,
+                            n_res)
+    return committed, settle_fast(avail, slot, qty, line_valid, fast)
+
+
+def txn_megastep(avail0, slot, qty, line_valid, key_local, cell_local,
+                 local_line, remote_line, ramp_ts, price_row, *,
+                 n_keys: int, n_cells: int) -> MegastepOut:
+    """The transaction megastep: the gate, then phases 2-4 (residual FCFS,
+    committed effects, RAMP stamps). Bit-exact with ``ref.txn_megastep_ref``.
+    On the card one kernel runs phases 2-4 and settles ``avail`` itself;
+    on the CPU its plain version (``txn_megastep_plain``) runs."""
+    fast, _, _ = contention_gate(avail0, slot, qty, line_valid)
+    res_idx, n_res = residual_order(fast)
+    mega = txn_megastep_cuda if avail0.is_cuda else txn_megastep_plain
+    return mega(avail0, slot, qty, line_valid, fast, res_idx, n_res,
+                key_local, cell_local, local_line, remote_line, ramp_ts,
+                price_row, n_keys=n_keys, n_cells=n_cells)

@@ -1,0 +1,291 @@
+"""The New-Order closed loop on one card: the port of
+``repro.txn.drivers.run_loop`` on its per-batch dispatch path.
+
+* **stream** — one source draws the home-partitioned New-Order batches
+  (the reference's numpy stream, so both packages run the same orders);
+* **merge regime** — New-Order with restock, outboxes accumulated in a
+  device window and drained by anti-entropy every ``merge_every`` batches;
+* **escrow regime** — strict New-Order against the hot-set shares, one
+  strict drain per window, and the share refresh every ``refresh_every``
+  drains or, with ``refresh_abort_rate``, as soon as the escrow abort rate
+  since the last refresh crosses it (one host read per window);
+* **audit** — ``audit=True`` runs the consistency oracle on the final
+  state.
+
+Stat accumulators stay on the device; the host reads them once at the end.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.core.planner import CoordClass
+from repro_torch.device import synchronize
+
+from . import tpcc
+from .tpcc import NewOrderBatch, StockDelta, TPCCState
+
+
+@dataclasses.dataclass
+class RunStats:
+    committed: int = 0
+    batches: int = 0
+    anti_entropy_rounds: int = 0
+    aborted: int = 0
+    refreshes: int = 0
+    wall_seconds: float = 0.0
+
+    @property
+    def throughput(self) -> float:
+        return self.committed / self.wall_seconds if self.wall_seconds else 0.0
+
+
+@dataclasses.dataclass
+class MixStats:
+    """Closed-loop stats, with the reference's fields."""
+
+    neworders: int = 0
+    payments: int = 0
+    order_statuses: int = 0
+    stock_levels: int = 0
+    deliveries: int = 0
+    anti_entropy_rounds: int = 0
+    reads_found: int = 0
+    fractures_observed: int = 0
+    lines_repaired: int = 0
+    aborts: int = 0               # escrow regime: insufficient-share aborts
+    refreshes: int = 0            # escrow regime: share-refresh rounds
+    cold_rejects: int = 0         # sparse escrow: owner-rejected cold entries
+    wall_seconds: float = 0.0
+
+    @property
+    def committed(self) -> int:
+        return (self.neworders + self.payments + self.order_statuses
+                + self.stock_levels + self.deliveries)
+
+    @property
+    def throughput(self) -> float:
+        return self.committed / self.wall_seconds if self.wall_seconds else 0.0
+
+
+class _OutboxWindow:
+    """Fixed ``[rows, R]`` device buffer of per-batch outboxes; every drain
+    reads the same flattened shape (unused rows stay ``valid=False``), in
+    the entry order of concatenating the per-batch outboxes."""
+
+    def __init__(self, delta: StockDelta, rows: int):
+        self._buf = StockDelta(*(torch.zeros((rows,) + x.shape, dtype=x.dtype,
+                                             device=x.device) for x in delta))
+        self._n = 0
+
+    def put(self, delta: StockDelta) -> None:
+        for b, x in zip(self._buf, delta):
+            b[self._n].copy_(x)
+        self._n += 1
+
+    def flat(self) -> StockDelta:
+        return StockDelta(*(x.reshape(-1) for x in self._buf))
+
+    def clear(self) -> None:
+        self._buf.valid.zero_()
+        self._n = 0
+
+    def __len__(self) -> int:
+        return self._n
+
+
+def _copy(t):
+    return type(t)(*(x.clone() for x in t))
+
+
+def _neworder_batch(engine, rng: np.random.Generator, batch_per_shard: int,
+                    remote_frac: float, ts0: int,
+                    item_skew: float = 0.0) -> tuple[NewOrderBatch, int]:
+    """One home-partitioned New-Order batch; returns (batch, advanced ts0).
+    The single source of the stream layout."""
+    parts = []
+    for s in range(engine.n_shards):
+        parts.append(tpcc.generate_neworder(
+            rng, engine.scale, batch_per_shard, remote_frac=remote_frac,
+            w_lo=s * engine.w_per_shard, w_hi=(s + 1) * engine.w_per_shard,
+            ts0=ts0, item_skew=item_skew, device=engine.device))
+        ts0 += batch_per_shard
+    return NewOrderBatch(*(torch.cat(xs) for xs in zip(*parts))), ts0
+
+
+def generate_neworder_stream(engine, *, batch_per_shard: int,
+                             n_batches: int, remote_frac: float,
+                             rng: np.random.Generator, ts0: int = 0,
+                             item_skew: float = 0.0) -> list[NewOrderBatch]:
+    """Home-partitioned New-Order batches for a whole run."""
+    batches = []
+    for _ in range(n_batches):
+        batch, ts0 = _neworder_batch(engine, rng, batch_per_shard,
+                                     remote_frac, ts0, item_skew)
+        batches.append(batch)
+    return batches
+
+
+def _adaptive_refresh_due(aborts_since, txns_since, rate: float) -> bool:
+    """Refresh iff ANY replica's escrow abort rate since the last refresh
+    crossed ``rate``."""
+    ab = np.asarray(aborts_since, np.int64)
+    tx = np.maximum(1, np.asarray(txns_since, np.int64))
+    return bool((ab > rate * tx).any())
+
+
+_NOT_PORTED = {
+    "fused": "the fused executor with CUDA graphs is ROADMAP Queue A item 5",
+    "payments": "Payment is ROADMAP Queue A item 3",
+    "deliveries": "Delivery is ROADMAP Queue A item 3",
+    "reads": "the RAMP reads are ROADMAP Queue A item 6",
+    "retry_cap": "the cold-retry ring is ROADMAP Queue A item 2",
+    "liveness": "liveness is ROADMAP Queue A item 9",
+    "obs": "the observability plane is ROADMAP Queue A item 9",
+}
+
+
+def run_loop(engine, state: TPCCState, esc=None, *,
+             batch_per_shard: int, n_batches: int,
+             remote_frac: float = 0.01, merge_every: int = 8,
+             refresh_every: int = 1, refresh_abort_rate: float | None = None,
+             item_skew: float = 0.0, seed: int = 0, audit: bool = False,
+             alive=None, fused: bool = False, payments: bool = False,
+             reads: bool = False, deliveries: bool = False,
+             retry_cap: int = 0, liveness=None, obs=None,
+             ) -> tuple[TPCCState, object, MixStats]:
+    """Drive the engine's plan-selected regime over a pre-generated
+    New-Order stream, batch by batch.
+
+    The state's tensors are updated in place. Batches are generated before
+    the timed loop; one warm-up pass on copies (which builds the kernels on
+    the card) precedes it, so ``wall_seconds`` covers all ``n_batches``.
+    ``alive`` ([n_shards] mask) threads share reclamation into every
+    refresh. ``fused``, ``payments``, ``reads``, ``deliveries``,
+    ``retry_cap``, ``liveness`` and ``obs`` belong to later slices and
+    raise ``NotImplementedError``.
+
+    Returns ``(state, escrow-or-None, MixStats)``; ``stats.neworders``
+    counts COMMITTED New-Orders (escrow aborts in ``stats.aborts``,
+    owner-side cold rejections in ``stats.cold_rejects``).
+    """
+    asked = dict(fused=fused, payments=payments, reads=reads,
+                 deliveries=deliveries, retry_cap=retry_cap > 0,
+                 liveness=liveness is not None, obs=obs is not None)
+    for knob, on in asked.items():
+        if on:
+            raise NotImplementedError(_NOT_PORTED[knob])
+    escrow = engine.stock_regime is CoordClass.ESCROW
+    if escrow and esc is None:
+        esc = engine.init_escrow(state)
+    q0 = state.s_quantity.clone() if audit else None
+    rng = np.random.default_rng(seed)
+    no_b = generate_neworder_stream(
+        engine, batch_per_shard=batch_per_shard, n_batches=n_batches,
+        remote_frac=remote_frac, rng=rng, item_skew=item_skew)
+    state, esc, stats = _dispatch_loop(
+        engine, state, esc, no_b, batch_per_shard=batch_per_shard,
+        merge_every=merge_every, refresh_every=refresh_every,
+        refresh_abort_rate=refresh_abort_rate, escrow=escrow, alive=alive)
+    if audit:
+        from .audit import assert_audit
+        if escrow:
+            assert_audit(state, escrow=esc, initial_stock=q0,
+                         strict_stock=True)
+        else:
+            assert_audit(state)
+    return state, esc, stats
+
+
+def _drain(engine, state, window: _OutboxWindow, escrow: bool):
+    if escrow:
+        return engine.drain_strict(state, window.flat())
+    return engine.anti_entropy(state, window.flat()), None
+
+
+def _dispatch_loop(engine, state, esc, no_b, *, batch_per_shard,
+                   merge_every, refresh_every, refresh_abort_rate, escrow,
+                   alive):
+    """The per-batch dispatch path: one engine call per step."""
+    n_batches = len(no_b)
+    B = batch_per_shard * engine.n_shards
+    rows = min(merge_every, n_batches)
+    dev = engine.device
+
+    # -- warm-up on copies: builds the kernels; the timed loop covers every
+    # batch
+    warm = _copy(state)
+    if escrow:
+        wesc = _copy(esc)
+        warm, wesc, outbox, _, _ = engine.neworder_escrow_step(warm, wesc,
+                                                               no_b[0])
+    else:
+        warm, outbox, _ = engine.neworder_step(warm, no_b[0])
+    window = _OutboxWindow(outbox, rows)
+    window.put(outbox)
+    warm, _ = _drain(engine, warm, window, escrow)
+    if escrow:
+        engine.refresh_escrow(warm, wesc, alive)
+    window.clear()
+    synchronize(dev)
+    del warm, outbox
+
+    stats = MixStats()
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    commit_acc, rej_acc = zero, zero
+    adaptive = escrow and refresh_abort_rate is not None
+    pr_commit = torch.zeros((engine.n_shards,), dtype=torch.int32,
+                            device=dev) if adaptive else None
+    commits_at_refresh = np.zeros(engine.n_shards, np.int64)
+    txns_at_refresh = 0
+    rounds = 0
+    t0 = time.perf_counter()
+    for i in range(n_batches):
+        if escrow:
+            state, esc, outbox, _, ok = engine.neworder_escrow_step(
+                state, esc, no_b[i])
+            commit_acc = commit_acc + ok.sum().to(torch.int32)
+            if adaptive:
+                pr_commit = pr_commit + ok.reshape(engine.n_shards, -1).sum(
+                    1).to(torch.int32)
+        else:
+            state, outbox, _ = engine.neworder_step(state, no_b[i])
+            stats.neworders += B
+        window.put(outbox)
+        if len(window) == merge_every or i == n_batches - 1:
+            # one batched drain of the whole window (Definition 3:
+            # convergence may lag the hot path, but must happen)
+            state, rej = _drain(engine, state, window, escrow)
+            if escrow:
+                rej_acc = rej_acc + rej.sum().to(torch.int32)
+            window.clear()
+            stats.anti_entropy_rounds += 1
+            rounds += 1
+            if escrow:
+                if adaptive:
+                    # the one host read adaptive control costs, per window
+                    commits_now = pr_commit.cpu().numpy().astype(np.int64)
+                    txns_now = batch_per_shard * (i + 1)
+                    due = _adaptive_refresh_due(
+                        (txns_now - txns_at_refresh)
+                        - (commits_now - commits_at_refresh),
+                        txns_now - txns_at_refresh, refresh_abort_rate)
+                    if due:
+                        commits_at_refresh = commits_now
+                        txns_at_refresh = txns_now
+                else:
+                    due = rounds % refresh_every == 0
+                if due:
+                    esc = engine.refresh_escrow(state, esc, alive)
+                    stats.refreshes += 1
+    synchronize(dev)
+    stats.wall_seconds = time.perf_counter() - t0
+    if escrow:
+        stats.neworders = int(commit_acc)
+        stats.aborts = B * n_batches - stats.neworders
+        stats.cold_rejects = int(rej_acc)
+    return state, esc, stats

@@ -1,0 +1,921 @@
+"""TPC-C New-Order in PyTorch — schema, the New-Order stream, the merge and
+escrow regimes' effects, and the twelve consistency criteria (paper §6.2).
+
+The port of ``repro.txn.tpcc`` for the New-Order slice. State is dense and
+warehouse-major, with the reference's field names, layouts and dtypes
+(int32, bool, float32; int64 only where torch indexes). The numpy draws of
+:func:`init_state` and :func:`generate_neworder` are the reference's, so the
+same seed gives both packages the same inputs.
+
+Unlike the reference's pure functions, the ``apply_*`` functions here
+update the state's tensors IN PLACE (the reference donates the same
+buffers under ``jit``) and return the state for chaining. Copy a state
+first (``TPCCState(*(x.clone() for x in s))``) to keep the old one.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.invariants import Invariant, InvariantKind
+from repro_torch.core.lattice import hot_position
+from repro_torch.device import resolve_device, synchronize
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.txn_megastep import (MegastepOut,
+                                              megastep_effect_products)
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class TPCCScale:
+    n_warehouses: int = 4
+    districts: int = 10          # districts per warehouse (spec: 10)
+    customers: int = 64          # customers per district (spec: 3000)
+    n_items: int = 256           # item catalog (spec: 100_000)
+    order_capacity: int = 128    # order slots per district (ring)
+    max_lines: int = 15          # order lines per order (spec: 5..15)
+
+    @staticmethod
+    def spec_scale(n_warehouses: int = 256) -> "TPCCScale":
+        """Full TPC-C per-warehouse cardinalities (TPC-C standard
+        specification, clause 4.3.3.1) with the repo's 8192-order ring."""
+        return TPCCScale(n_warehouses=n_warehouses, districts=10,
+                         customers=3000, n_items=100_000,
+                         order_capacity=8192, max_lines=15)
+
+
+class TPCCState(NamedTuple):
+    """All tables, warehouse-major (the reference's layout)."""
+
+    # WAREHOUSE
+    w_ytd: Tensor        # [W] f32
+    w_tax: Tensor        # [W] f32
+    # DISTRICT
+    d_next_o_id: Tensor  # [W, D] int32 — THE sequential counter (§6.2)
+    d_ytd: Tensor        # [W, D] f32
+    d_tax: Tensor        # [W, D] f32
+    h_amount_sum: Tensor  # [W, D] f32 materialized history sum
+    # CUSTOMER
+    c_balance: Tensor       # [W, D, C] f32
+    c_ytd_payment: Tensor   # [W, D, C] f32
+    c_payment_cnt: Tensor   # [W, D, C] int32
+    c_delivery_cnt: Tensor  # [W, D, C] int32
+    c_discount: Tensor      # [W, D, C] f32
+    c_delivered_sum: Tensor  # [W, D, C] f32
+    # STOCK
+    s_quantity: Tensor    # [W, I] int32
+    s_ytd: Tensor         # [W, I] f32
+    s_order_cnt: Tensor   # [W, I] int32
+    s_remote_cnt: Tensor  # [W, I] int32
+    # ITEM (read-only; replicated per warehouse)
+    i_price: Tensor       # [W, I] f32
+    # ORDER / NEW-ORDER / ORDER-LINE (ring-buffered per district)
+    o_valid: Tensor    # [W, D, OC] bool
+    o_c_id: Tensor     # [W, D, OC] int32
+    o_ol_cnt: Tensor   # [W, D, OC] int32
+    o_carrier: Tensor  # [W, D, OC] int32 (-1 = undelivered)
+    o_entry_d: Tensor  # [W, D, OC] int32
+    no_valid: Tensor   # [W, D, OC] bool
+    ol_valid: Tensor      # [W, D, OC, L] bool — prepared layer
+    ol_i_id: Tensor       # [W, D, OC, L] int32
+    ol_supply_w: Tensor   # [W, D, OC, L] int32
+    ol_qty: Tensor        # [W, D, OC, L] int32
+    ol_amount: Tensor     # [W, D, OC, L] f32
+    ol_delivered: Tensor  # [W, D, OC, L] bool
+    # RAMP atomic-visibility metadata
+    o_ts: Tensor    # [W, D, OC] int32 (-1 = none)
+    ol_ts: Tensor   # [W, D, OC, L] int32 (-1 = none)
+    ol_vis: Tensor  # [W, D, OC, L] bool
+
+
+def init_state(scale: TPCCScale, seed: int = 0, device=None) -> TPCCState:
+    """Initial tables from the reference's numpy draws (same seed, same
+    values), on the card unless ``device`` says otherwise."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    W, D, C = scale.n_warehouses, scale.districts, scale.customers
+    I, OC, L = scale.n_items, scale.order_capacity, scale.max_lines
+    price = rng.uniform(1.0, 100.0, size=(I,)).astype(np.float32)
+    w_tax = rng.uniform(0.0, 0.2, (W,)).astype(np.float32)
+    d_tax = rng.uniform(0.0, 0.2, (W, D)).astype(np.float32)
+    c_discount = rng.uniform(0.0, 0.5, (W, D, C)).astype(np.float32)
+    s_quantity = rng.integers(10, 101, (W, I)).astype(np.int32)
+
+    def put(a):
+        return torch.from_numpy(a).to(dev)
+
+    def full(shape, value, dtype):
+        return torch.full(shape, value, dtype=dtype, device=dev)
+
+    f32, i32, b = torch.float32, torch.int32, torch.bool
+    return TPCCState(
+        w_ytd=full((W,), 0, f32), w_tax=put(w_tax),
+        d_next_o_id=full((W, D), 0, i32), d_ytd=full((W, D), 0, f32),
+        d_tax=put(d_tax), h_amount_sum=full((W, D), 0, f32),
+        c_balance=full((W, D, C), 0, f32),
+        c_ytd_payment=full((W, D, C), 0, f32),
+        c_payment_cnt=full((W, D, C), 0, i32),
+        c_delivery_cnt=full((W, D, C), 0, i32),
+        c_discount=put(c_discount),
+        c_delivered_sum=full((W, D, C), 0, f32),
+        s_quantity=put(s_quantity), s_ytd=full((W, I), 0, f32),
+        s_order_cnt=full((W, I), 0, i32), s_remote_cnt=full((W, I), 0, i32),
+        i_price=put(price).expand(W, I).contiguous(),
+        o_valid=full((W, D, OC), False, b), o_c_id=full((W, D, OC), 0, i32),
+        o_ol_cnt=full((W, D, OC), 0, i32),
+        o_carrier=full((W, D, OC), -1, i32),
+        o_entry_d=full((W, D, OC), 0, i32),
+        no_valid=full((W, D, OC), False, b),
+        ol_valid=full((W, D, OC, L), False, b),
+        ol_i_id=full((W, D, OC, L), 0, i32),
+        ol_supply_w=full((W, D, OC, L), 0, i32),
+        ol_qty=full((W, D, OC, L), 0, i32),
+        ol_amount=full((W, D, OC, L), 0, f32),
+        ol_delivered=full((W, D, OC, L), False, b),
+        o_ts=full((W, D, OC), -1, i32),
+        ol_ts=full((W, D, OC, L), -1, i32),
+        ol_vis=full((W, D, OC, L), False, b),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Transaction inputs
+# ---------------------------------------------------------------------------
+
+
+class NewOrderBatch(NamedTuple):
+    w: Tensor          # [B] home warehouse
+    d: Tensor          # [B] district
+    c: Tensor          # [B] customer
+    n_lines: Tensor    # [B] 5..15
+    i_id: Tensor       # [B, L] item ids
+    supply_w: Tensor   # [B, L] supplying warehouse (1% remote in spec)
+    qty: Tensor        # [B, L] 1..10
+    ts: Tensor         # [B] logical entry timestamp
+
+
+def generate_neworder(rng: np.random.Generator, scale: TPCCScale, batch: int,
+                      remote_frac: float = 0.01,
+                      w_lo: int = 0, w_hi: int | None = None,
+                      ts0: int = 0, item_skew: float = 0.0,
+                      device=None) -> NewOrderBatch:
+    """Random New-Order inputs for home warehouses in [w_lo, w_hi) — the
+    reference's numpy stream, draw for draw. ``item_skew`` > 0 draws item
+    ids from the Zipfian profile (:func:`item_popularity`)."""
+    dev = resolve_device(device)
+    w_hi = scale.n_warehouses if w_hi is None else w_hi
+    L = scale.max_lines
+    w = rng.integers(w_lo, w_hi, batch).astype(np.int32)
+    n_lines = rng.integers(5, L + 1, batch).astype(np.int32)
+    if item_skew > 0:
+        cdf = np.cumsum(item_popularity(scale.n_items, item_skew))
+        i_id = np.searchsorted(cdf, rng.random((batch, L))).astype(np.int32)
+        i_id = np.minimum(i_id, scale.n_items - 1)
+    else:
+        i_id = rng.integers(0, scale.n_items, (batch, L)).astype(np.int32)
+    remote = rng.random((batch, L)) < remote_frac
+    other = rng.integers(0, scale.n_warehouses, (batch, L)).astype(np.int32)
+    supply = np.where(remote, other, w[:, None]).astype(np.int32)
+    d = rng.integers(0, scale.districts, batch).astype(np.int32)
+    c = rng.integers(0, scale.customers, batch).astype(np.int32)
+    qty = rng.integers(1, 11, (batch, L)).astype(np.int32)
+    ts = (ts0 + np.arange(batch)).astype(np.int32)
+    return NewOrderBatch(*(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                           for a in (w, d, c, n_lines, i_id, supply, qty, ts)))
+
+
+# ---------------------------------------------------------------------------
+# Remote stock deltas (the RAMP-style asynchronous write set)
+# ---------------------------------------------------------------------------
+
+
+class StockDelta(NamedTuple):
+    """COO outbox of stock updates destined for non-local warehouses
+    (capacity R = B * L; ``valid`` marks live entries)."""
+
+    dst_w: Tensor  # [R] int32 destination warehouse
+    i_id: Tensor   # [R] int32
+    qty: Tensor    # [R] int32 ordered quantity
+    valid: Tensor  # [R] bool
+
+
+def apply_stock_updates(state: TPCCState, w_idx: Tensor, i_idx: Tensor,
+                        qty: Tensor, mask: Tensor, remote: Tensor,
+                        restock: bool = True) -> TPCCState:
+    """Owner-side stock effect (TPC-C §2.4.2.2): S_YTD += qty,
+    S_ORDER_CNT += 1, S_REMOTE_CNT += remote, S_QUANTITY -= qty, then, with
+    ``restock``, +91 while below 10 (the float32 ceil rule of the
+    reference). ``restock=False`` is the strict-stock regime. Integer
+    scatter-adds are exact in any order; so is S_YTD's, whose addends are
+    integers far below 2**24."""
+    idx = (torch.where(mask, w_idx, 0).long(),
+           torch.where(mask, i_idx, 0).long())
+    qty_m = torch.where(mask, qty, 0)
+    state.s_ytd.index_put_(idx, qty_m.to(state.s_ytd.dtype), accumulate=True)
+    state.s_order_cnt.index_put_(idx, mask.to(torch.int32), accumulate=True)
+    state.s_remote_cnt.index_put_(idx, (mask & remote).to(torch.int32),
+                                  accumulate=True)
+    s_q = state.s_quantity
+    s_q.index_put_(idx, -qty_m, accumulate=True)
+    if restock:
+        deficit = torch.ceil((10 - s_q) / 91.0).clamp_min(0).to(torch.int32)
+        s_q.copy_(torch.where(s_q < 10, s_q + deficit * 91, s_q))
+    return state
+
+
+# ---------------------------------------------------------------------------
+# New-Order (the paper's measured transaction)
+# ---------------------------------------------------------------------------
+
+
+class FlatLines(NamedTuple):
+    """Flattened ``[B*L]`` order-line views shared by admission, effects and
+    the outbox build (the mask-independent parts)."""
+
+    w: Tensor       # [N] int32 supply warehouse (GLOBAL id)
+    i: Tensor       # [N] int32 item id
+    q: Tensor       # [N] int32 quantity
+    local: Tensor   # [N] bool — supply warehouse within [w_lo, w_hi)
+    remote: Tensor  # [N] bool — supply warehouse != the order's home w
+
+
+def flatten_order_lines(batch: NewOrderBatch, w_lo: int,
+                        w_hi: int) -> FlatLines:
+    """THE order-line flattening, one definition for every consumer."""
+    flat_w = batch.supply_w.reshape(-1)
+    return FlatLines(
+        w=flat_w, i=batch.i_id.reshape(-1), q=batch.qty.reshape(-1),
+        local=(flat_w >= w_lo) & (flat_w < w_hi),
+        remote=(batch.supply_w != batch.w[:, None]).reshape(-1))
+
+
+def _put_rows(table: Tensor, flat: Tensor, vals, keep: Tensor | None):
+    """``table.view(-1, ...)[flat[b]] = vals[b]`` for the rows with
+    ``keep[b]`` (every row when ``keep`` is None).
+
+    The reference drops aborted rows with ``mode="drop"``; torch has none,
+    and masking by ``nonzero`` would synchronise with the host. So a
+    dropped row is redirected to repeat the first kept row's write (same
+    index, same value, so duplicates cannot race), or, when no row is kept,
+    to rewrite row 0's current value: a no-op either way.
+    """
+    view = table.view(-1, *table.shape[3:])
+    vals = torch.as_tensor(vals, dtype=table.dtype, device=table.device)
+    vals = vals.expand(flat.shape[0], *table.shape[3:])
+    if keep is not None:
+        j = keep.to(torch.int32).argmax()
+        row_keep = keep.reshape(-1, *([1] * (table.dim() - 3)))
+        fallback = torch.where(keep.any(), vals[j], view[flat[j]])
+        vals = torch.where(row_keep, vals, fallback)
+        flat = torch.where(keep, flat, flat[j])
+    view.index_put_((flat,), vals)
+
+
+def _insert_order_rows(state: TPCCState, batch: NewOrderBatch, scale,
+                       wl: Tensor, o_id: Tensor, keep: Tensor | None,
+                       line_valid: Tensor, ramp_ts: Tensor, amount: Tensor,
+                       ol_ts: Tensor) -> None:
+    """ORDER + NEW-ORDER + ORDER-LINE inserts of each (kept) transaction
+    at ring slot ``o_id % OC``; each insert writes the order's whole line
+    row, invalid tail included."""
+    D, OC = scale.districts, scale.order_capacity
+    flat = ((wl.long() * D + batch.d.long()) * OC + (o_id % OC).long())
+    for table, vals in (
+            (state.o_valid, True), (state.o_c_id, batch.c),
+            (state.o_ol_cnt, batch.n_lines), (state.o_carrier, -1),
+            (state.o_entry_d, batch.ts), (state.no_valid, True),
+            (state.o_ts, ramp_ts),
+            (state.ol_valid, line_valid), (state.ol_i_id, batch.i_id),
+            (state.ol_supply_w, batch.supply_w),
+            (state.ol_qty, torch.where(line_valid, batch.qty, 0)),
+            (state.ol_amount, amount), (state.ol_ts, ol_ts),
+            (state.ol_vis, line_valid)):
+        _put_rows(table, flat, vals, keep)
+
+
+def order_line_valid(batch: NewOrderBatch) -> Tensor:
+    """[B, L] bool: line l of order b exists (l < n_lines[b])."""
+    L = batch.i_id.shape[1]
+    line = torch.arange(L, dtype=torch.int32, device=batch.n_lines.device)
+    return line[None, :] < batch.n_lines[:, None]
+
+
+def _outbox(flat: FlatLines, ok: Tensor) -> StockDelta:
+    rmask = ok & ~flat.local
+    return StockDelta(dst_w=torch.where(rmask, flat.w, 0),
+                      i_id=torch.where(rmask, flat.i, 0),
+                      qty=torch.where(rmask, flat.q, 0), valid=rmask)
+
+
+def _district_rank(batch: NewOrderBatch, D: int,
+                   committed: Tensor | None = None) -> Tensor:
+    """Each transaction's rank among the earlier (committed) transactions
+    of its district in the batch: the batched increment-and-get, as the
+    reference's ``[B, B]`` prefix-count matrix."""
+    B = batch.w.shape[0]
+    key = batch.w * D + batch.d
+    before = (key[None, :] == key[:, None]) & torch.ones(
+        (B, B), dtype=torch.bool, device=key.device).tril(-1)
+    if committed is not None:
+        before &= committed[None, :]
+    return before.sum(1).to(torch.int32)
+
+
+def _totals(state: TPCCState, batch: NewOrderBatch, wl: Tensor,
+            amount: Tensor) -> Tensor:
+    wl, d = wl.long(), batch.d.long()
+    disc = state.c_discount[wl, d, batch.c.long()]
+    tax = state.w_tax[wl] + state.d_tax[wl, d]
+    return amount.sum(1) * (1.0 - disc) * (1.0 + tax)
+
+
+def apply_neworder(state: TPCCState, batch: NewOrderBatch,
+                   scale: TPCCScale, w_lo: int = 0, w_hi: int | None = None,
+                   replica: int = 0, num_replicas: int = 1
+                   ) -> tuple[TPCCState, StockDelta, Tensor]:
+    """Coordination-avoiding New-Order (the merge regime): a batched
+    per-district increment-and-get for o_ids, FK inserts, local stock
+    updates with restock, remote lines emitted as the outbox, and RAMP
+    stamps ``ts * num_replicas + replica`` on the whole write set.
+
+    Returns (state, remote outbox, per-txn total amounts).
+    """
+    w_hi = scale.n_warehouses if w_hi is None else w_hi
+    ramp_ts = batch.ts * num_replicas + replica
+    wl = batch.w - w_lo
+    idx = (wl.long(), batch.d.long())
+
+    rank = _district_rank(batch, scale.districts)
+    o_id = state.d_next_o_id[idx] + rank
+    state.d_next_o_id.index_put_(idx, torch.ones_like(rank), accumulate=True)
+
+    line_valid = order_line_valid(batch)
+    price = state.i_price[idx[0][:, None], batch.i_id.long()]
+    amount = torch.where(line_valid, price * batch.qty.to(price.dtype), 0.0)
+    _insert_order_rows(state, batch, scale, wl, o_id, None, line_valid,
+                       ramp_ts, amount,
+                       torch.where(line_valid, ramp_ts[:, None], -1))
+
+    flat = flatten_order_lines(batch, w_lo, w_hi)
+    flat_valid = line_valid.reshape(-1)
+    apply_stock_updates(state, flat.w - w_lo, flat.i, flat.q,
+                        flat_valid & flat.local, flat.remote)
+    return state, _outbox(flat, flat_valid), _totals(state, batch, wl, amount)
+
+
+# ---------------------------------------------------------------------------
+# Escrowed strict-stock New-Order (paper §8: amortizing coordination)
+# ---------------------------------------------------------------------------
+
+
+def escrow_share_for(s_quantity, replica, num_replicas: int, alive=None):
+    """Replica ``replica``'s share of every stock cell — THE partition
+    formula: ``q // R`` each, the remainder to the lowest slots. ``alive``
+    ([R] mask) gives dead replicas ZERO and partitions among the live ones;
+    the sum over slots equals ``q`` either way."""
+    q = torch.as_tensor(s_quantity).to(torch.int32)
+    r = torch.as_tensor(replica, dtype=torch.int32, device=q.device)
+    if alive is None:
+        return q // num_replicas + (r < q % num_replicas).to(torch.int32)
+    alive_i = torch.as_tensor(alive, device=q.device).to(torch.int32)
+    n_live = alive_i.sum().clamp_min(1).to(torch.int32)
+    rank = (torch.cumsum(alive_i, 0).to(torch.int32) - 1)[r.long()]
+    share = q // n_live + (rank < q % n_live).to(torch.int32)
+    return alive_i[r.long()] * share
+
+
+ADMISSION_MODES = ("auto", "scan", "kernel")
+
+# the "auto" fallback when the cut-over is not measured: below this batch
+# the B-step scan, at or above it the gate + kernel
+AUTO_KERNEL_MIN_BATCH = 64
+
+# False pins "auto" to the constant threshold (no timing probe)
+ADMISSION_AUTOTUNE = True
+
+_CUTOVER_CACHE: dict[tuple, str] = {}
+
+
+def resolve_admission_cutover(batch: int, n_lines: int = 15, *, device,
+                              cells: int = 4096, trials: int = 3) -> str:
+    """Time the scan against the gate + kernel pipeline once per (device
+    type, batch shape) on a synthetic admission problem of that shape, on
+    the device the program runs on, and memoize the faster one. A failure
+    of either strategy raises; it is not hidden behind the constant."""
+    dev = torch.device(device)
+    key = (dev.type, batch, n_lines)
+    hit = _CUTOVER_CACHE.get(key)
+    if hit is not None:
+        return hit
+    rng = np.random.default_rng(0)
+    # plentiful stock under a skewed access profile: the regime the engine
+    # runs, where contention is the exception
+    avail0 = torch.as_tensor(rng.integers(100, 500, size=cells),
+                             dtype=torch.int32, device=dev)
+    slot = torch.as_tensor(
+        (cells * rng.power(4.0, size=(batch, n_lines))).astype(np.int64)
+        % cells, dtype=torch.int32, device=dev)
+    qty = torch.as_tensor(rng.integers(1, 10, size=(batch, n_lines)),
+                          dtype=torch.int32, device=dev)
+    lv = torch.as_tensor(rng.random((batch, n_lines)) < 0.8, device=dev)
+    reps = max(trials, 1024 // max(batch, 1))
+    walls = {}
+    # each trial gets a fresh vector, as each batch does (the kernel
+    # updates it in place)
+    for mode in ("scan", "kernel"):
+        admit_fcfs(avail0.clone(), slot, qty, lv, admission=mode)  # warm-up
+        synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            admit_fcfs(avail0.clone(), slot, qty, lv, admission=mode)
+        synchronize(dev)
+        walls[mode] = time.perf_counter() - t0
+    choice = min(walls, key=walls.get)
+    _CUTOVER_CACHE[key] = choice
+    return choice
+
+
+def resolve_admission(admission: str, batch: int, n_lines: int | None = None,
+                      device="cpu") -> str:
+    """Resolve the ``admission=`` knob for a batch shape: "auto" asks the
+    memoized timing probe (:func:`resolve_admission_cutover`) on
+    ``device`` when the line width is known and autotuning is on, else the
+    ``AUTO_KERNEL_MIN_BATCH`` constant."""
+    if admission not in ADMISSION_MODES:
+        raise ValueError(f"unknown admission {admission!r}; "
+                         f"choose from {ADMISSION_MODES}")
+    if admission == "auto":
+        if n_lines is not None and ADMISSION_AUTOTUNE:
+            return resolve_admission_cutover(batch, n_lines, device=device)
+        return "kernel" if batch >= AUTO_KERNEL_MIN_BATCH else "scan"
+    return admission
+
+
+EFFECTS_MODES = ("scan", "fused")
+
+
+def resolve_effects(effects: str) -> str:
+    """Validate the ``effects=`` knob: "scan" is the per-phase path,
+    "fused" the megastep, bit-identically."""
+    if effects not in EFFECTS_MODES:
+        raise ValueError(f"unknown effects {effects!r}; "
+                         f"choose from {EFFECTS_MODES}")
+    return effects
+
+
+def admit_fcfs(avail0: Tensor, slot: Tensor, qty: Tensor, line_valid: Tensor,
+               admission: str = "scan") -> tuple[Tensor, Tensor]:
+    """FCFS admission of a batch against an availability vector; returns
+    (committed [B] bool, avail [A] after all admitted reservations),
+    bit-identical across strategies:
+
+    * ``"scan"`` — the definitional sequential walk over the whole batch
+      (``kernels/ref.escrow_admit_ref``);
+    * ``"kernel"`` — the contention gate plus the residual FCFS walk
+      (``kernels/ops.escrow_admit``: the CUDA kernel on the card, its plain
+      version on the CPU);
+    * ``"auto"`` — :func:`resolve_admission` picks per batch shape.
+
+    On the card ``"kernel"`` updates ``avail0`` in place: pass a vector the
+    caller no longer needs.
+    """
+    B, L = slot.shape
+    if resolve_admission(admission, B, L, slot.device) == "kernel":
+        return ops.escrow_admit(avail0, slot, qty, line_valid)
+    return ref.escrow_admit_ref(avail0, slot, qty, line_valid)
+
+
+def _neworder_committed_effects(state: TPCCState, batch: NewOrderBatch,
+                                scale: TPCCScale, committed: Tensor,
+                                line_valid: Tensor, ramp_ts: Tensor,
+                                w_lo: int, w_hi: int
+                                ) -> tuple[TPCCState, StockDelta, Tensor]:
+    """Committed-only strict-stock effects (the per-phase "scan" path):
+    dense o_ids over committed txns, aborted rows dropped, restock-free
+    stock decrements, remote lines as the outbox."""
+    wl = batch.w - w_lo
+    idx = (wl.long(), batch.d.long())
+    line_ok = line_valid & committed[:, None]
+
+    o_id = state.d_next_o_id[idx] + _district_rank(batch, scale.districts,
+                                                   committed)
+    state.d_next_o_id.index_put_(idx, committed.to(torch.int32),
+                                 accumulate=True)
+
+    price = state.i_price[idx[0][:, None], batch.i_id.long()]
+    amount = torch.where(line_valid, price * batch.qty.to(price.dtype), 0.0)
+    _insert_order_rows(state, batch, scale, wl, o_id, committed, line_valid,
+                       ramp_ts, amount,
+                       torch.where(line_valid, ramp_ts[:, None], -1))
+
+    flat = flatten_order_lines(batch, w_lo, w_hi)
+    flat_ok = line_ok.reshape(-1)
+    apply_stock_updates(state, flat.w - w_lo, flat.i, flat.q,
+                        flat_ok & flat.local, flat.remote, restock=False)
+    total = torch.where(committed, _totals(state, batch, wl, amount), 0.0)
+    return state, _outbox(flat, flat_ok), total
+
+
+def megastep_args(state: TPCCState, batch: NewOrderBatch, scale: TPCCScale,
+                  avail0: Tensor, slot: Tensor, line_valid: Tensor,
+                  ramp_ts: Tensor, w_lo: int, w_hi: int
+                  ) -> tuple[tuple[Tensor, ...], dict]:
+    """The megastep problem of a batch: ``(args, kw)`` for
+    ``kernels.ops.txn_megastep(*args, **kw)`` — the admission problem plus
+    shard-local district keys, local stock cells, the local/remote line
+    split, the RAMP stamps and the gathered price row."""
+    B, L = batch.i_id.shape
+    D, I = scale.districts, scale.n_items
+    Wl = state.s_quantity.shape[0]
+    wl = batch.w - w_lo
+    flat = flatten_order_lines(batch, w_lo, w_hi)
+    local_line = line_valid & flat.local.reshape(B, L)
+    remote_line = flat.remote.reshape(B, L)
+    key_local = (wl * D + batch.d).to(torch.int32)
+    cell_local = torch.where(local_line, (batch.supply_w - w_lo) * I
+                             + batch.i_id, 0).to(torch.int32)
+    price = state.i_price[wl.long()[:, None], batch.i_id.long()]
+    return ((avail0, slot, batch.qty, line_valid, key_local, cell_local,
+             local_line, remote_line, ramp_ts, price),
+            dict(n_keys=Wl * D, n_cells=Wl * I))
+
+
+def _neworder_fused_effects(state: TPCCState, batch: NewOrderBatch,
+                            scale: TPCCScale, avail0: Tensor, slot: Tensor,
+                            line_valid: Tensor, ramp_ts: Tensor,
+                            w_lo: int, w_hi: int, admission: str
+                            ) -> tuple[TPCCState, Tensor, StockDelta, Tensor,
+                                       Tensor]:
+    """The FUSED strict-stock New-Order: admission, committed effects and
+    RAMP stamps through the megastep (``kernels/ops.txn_megastep``), whose
+    products land as dense adds (district counters, the four stock tables)
+    and the order/order-line row inserts.
+
+    Returns (state, settled avail, outbox, totals, committed).
+    """
+    B, L = batch.i_id.shape
+    D, I = scale.districts, scale.n_items
+    Wl = state.s_quantity.shape[0]
+    wl = batch.w - w_lo
+    args, kw = megastep_args(state, batch, scale, avail0, slot, line_valid,
+                             ramp_ts, w_lo, w_hi)
+    if resolve_admission(admission, B, L, slot.device) == "kernel":
+        out = ops.txn_megastep(*args, **kw)
+    else:
+        # scan admission + the plain effect products: the products do not
+        # depend on the admission strategy
+        committed, avail = admit_fcfs(*args[:4], "scan")
+        out = MegastepOut(committed, avail, *megastep_effect_products(
+            committed, *args[2:], **kw))
+
+    committed = out.committed
+    o_id = state.d_next_o_id[wl.long(), batch.d.long()] + out.rank
+    state.d_next_o_id.add_(out.d_count.reshape(Wl, D))
+    _insert_order_rows(state, batch, scale, wl, o_id, committed, line_valid,
+                       ramp_ts, out.amount, out.ol_ts)
+
+    dec = out.stock_dec.reshape(Wl, I)
+    state.s_quantity.sub_(dec)
+    state.s_ytd.add_(dec.to(state.s_ytd.dtype))
+    state.s_order_cnt.add_(out.stock_cnt.reshape(Wl, I))
+    state.s_remote_cnt.add_(out.stock_rcnt.reshape(Wl, I))
+
+    flat = flatten_order_lines(batch, w_lo, w_hi)
+    line_ok = (line_valid & committed[:, None]).reshape(-1)
+    total = torch.where(committed, _totals(state, batch, wl, out.amount), 0.0)
+    return state, out.avail, _outbox(flat, line_ok), total, committed
+
+
+# ---------------------------------------------------------------------------
+# Sparse hot-set escrow (two-tier layout): escrow only the contended cells,
+# owner-route the cold tail. Item popularity is Zipfian by id.
+# ---------------------------------------------------------------------------
+
+
+def item_popularity(n_items: int, theta: float) -> np.ndarray:
+    """Zipfian access profile: item id == popularity rank,
+    p(i) ∝ 1 / (i + 1)**theta. ``theta=0`` is uniform."""
+    p = 1.0 / np.power(np.arange(1, n_items + 1, dtype=np.float64), theta)
+    return p / p.sum()
+
+
+def default_hot_items(scale: TPCCScale) -> int:
+    """Default hot-set width: the top 1% of the item catalog (>= 1)."""
+    return max(1, scale.n_items // 100)
+
+
+def select_hot_cells(scale: TPCCScale, hot_items: int) -> np.ndarray:
+    """The top-K contended (warehouse, item) cells as sorted int32 keys
+    ``w * n_items + i``: the ``hot_items`` most popular ids crossed with
+    every warehouse (w-major, ascending item: already sorted)."""
+    hot_items = min(max(1, hot_items), scale.n_items)
+    w = np.arange(scale.n_warehouses, dtype=np.int64)[:, None]
+    i = np.arange(hot_items, dtype=np.int64)[None, :]
+    keys = (w * scale.n_items + i).reshape(-1)
+    if keys[-1] > np.iinfo(np.int32).max:
+        raise ValueError("cell key overflows int32")
+    return keys.astype(np.int32)
+
+
+def escrow_layout_bytes(scale: TPCCScale, hot_items: int) -> dict:
+    """Per-device escrow residency of the two layouts (int32 everywhere):
+    dense — ``[1, W, I]`` shares + spent; sparse — the ``[K]`` key table
+    plus ``[1, K]`` shares + spent, K = W * hot_items."""
+    dense = 2 * scale.n_warehouses * scale.n_items * 4
+    K = scale.n_warehouses * min(max(1, hot_items), scale.n_items)
+    sparse = 3 * K * 4
+    return {"dense_bytes_per_device": dense,
+            "sparse_bytes_per_device": sparse,
+            "hot_cells": K,
+            "reduction_vs_dense": dense / sparse}
+
+
+def sparse_admission_problem(s_quantity: Tensor, hot_keys: Tensor,
+                             hot_headroom: Tensor, supply_w: Tensor,
+                             i_id: Tensor, n_items: int, w_lo: int,
+                             w_hi: int) -> tuple[Tensor, Tensor]:
+    """The two-tier layout's admission problem: ONE availability vector
+
+      [0, K)            hot-cell headroom (shares - spent, this replica)
+      [K, K + Wl*I)     cold LOCAL stock (this shard's s_quantity)
+      [K + Wl*I]        sentinel BIG for cold REMOTE lines, admitted
+                        optimistically and settled at their owner
+
+    and the per-line slots into it. Returns (avail0, slot)."""
+    K = hot_keys.shape[0]
+    Wl = s_quantity.shape[0]
+    pos, is_hot = hot_position(hot_keys, supply_w * n_items + i_id)
+    is_local = (supply_w >= w_lo) & (supply_w < w_hi)
+    wl_line = torch.where(is_local, supply_w - w_lo, 0)
+    big = torch.full((1,), np.iinfo(np.int32).max // 2, dtype=torch.int32,
+                     device=s_quantity.device)
+    avail0 = torch.cat([hot_headroom, s_quantity.reshape(-1), big])
+    slot = torch.where(is_hot, pos,
+                       torch.where(is_local, K + wl_line * n_items + i_id,
+                                   K + Wl * n_items)).to(torch.int32)
+    return avail0, slot
+
+
+def apply_neworder_escrow_sparse(state: TPCCState, hot_keys: Tensor,
+                                 hot_shares: Tensor, hot_spent: Tensor,
+                                 batch: NewOrderBatch, scale: TPCCScale,
+                                 w_lo: int = 0, w_hi: int | None = None,
+                                 replica: int = 0, num_replicas: int = 1,
+                                 admission: str = "scan",
+                                 effects: str = "scan"
+                                 ) -> tuple[TPCCState, Tensor, StockDelta,
+                                            Tensor, Tensor]:
+    """Strict-stock New-Order over the two-tier escrow layout: HOT lines
+    spend this replica's share, COLD local lines reserve the shard's own
+    stock, COLD remote lines ride the sentinel and settle at their owner
+    (:func:`apply_stock_updates_strict_tiered`). ``admission`` and
+    ``effects`` pick strategies with bit-identical results.
+
+    Returns (state, hot_spent', remote outbox, totals, committed [B]).
+    """
+    w_hi = scale.n_warehouses if w_hi is None else w_hi
+    ramp_ts = batch.ts * num_replicas + replica
+    K = hot_keys.shape[0]
+    line_valid = order_line_valid(batch)
+    avail0, slot = sparse_admission_problem(
+        state.s_quantity, hot_keys, hot_shares - hot_spent, batch.supply_w,
+        batch.i_id, scale.n_items, w_lo, w_hi)
+
+    if resolve_effects(effects) == "fused":
+        state, avail, delta, total, committed = _neworder_fused_effects(
+            state, batch, scale, avail0, slot, line_valid, ramp_ts, w_lo,
+            w_hi, admission)
+        return state, hot_shares - avail[:K], delta, total, committed
+
+    committed, avail = admit_fcfs(avail0, slot, batch.qty, line_valid,
+                                  admission)
+    state, delta, total = _neworder_committed_effects(
+        state, batch, scale, committed, line_valid, ramp_ts, w_lo, w_hi)
+    return state, hot_shares - avail[:K], delta, total, committed
+
+
+def apply_stock_updates_strict_tiered(state: TPCCState, hot_keys: Tensor,
+                                      dst_w: Tensor, i_idx: Tensor,
+                                      qty: Tensor, mask: Tensor,
+                                      remote: Tensor, n_items: int,
+                                      w_lo: int = 0
+                                      ) -> tuple[TPCCState, Tensor]:
+    """Owner-side strict apply of drained outbox entries, split by tier:
+    HOT entries (share-admitted upstream) apply unconditionally; COLD
+    entries land per cell ALL-OR-NOTHING — a cell's queued entries apply
+    iff their total fits its stock, which depends only on the per-cell
+    total and so not on entry order. Returns (state, rejected count int32).
+    """
+    _, is_hot = hot_position(hot_keys, dst_w * n_items + i_idx)
+    w_idx = torch.where(mask, dst_w - w_lo, 0)
+    i_idx = torch.where(mask, i_idx, 0)
+    cold = mask & ~is_hot
+    demand = torch.zeros_like(state.s_quantity)
+    demand.index_put_((torch.where(cold, w_idx, 0).long(),
+                       torch.where(cold, i_idx, 0).long()),
+                      torch.where(cold, qty, 0), accumulate=True)
+    fits = demand <= state.s_quantity
+    admit_cold = cold & fits[w_idx.long(), i_idx.long()]
+    rejects = (cold & ~admit_cold).sum().to(torch.int32)
+    state = apply_stock_updates(state, w_idx, i_idx, qty,
+                                (mask & is_hot) | admit_cold, remote,
+                                restock=False)
+    return state, rejects
+
+
+# ---------------------------------------------------------------------------
+# The twelve consistency criteria (TPC-C §3.3.2.1-12), executable
+# ---------------------------------------------------------------------------
+
+
+def check_consistency(state, atol: float = 1e-2) -> dict[int, bool]:
+    """Evaluate all twelve criteria on a (converged) state, on the host.
+    ``state`` may be a torch state or one already copied to numpy."""
+    from repro_torch.convert import state_to_numpy
+
+    s = state_to_numpy(state)
+    out = {}
+    out[1] = bool(np.allclose(s.w_ytd, s.d_ytd.sum(-1), atol=atol))
+    order_count = s.o_valid.sum(-1)
+    out[2] = bool(np.array_equal(s.d_next_o_id, order_count))
+    no_count = s.no_valid.sum(-1)
+    delivered = (s.o_valid & ~s.no_valid).sum(-1)
+    out[3] = bool(np.array_equal(no_count + delivered, order_count))
+    out[4] = bool(np.array_equal(
+        np.where(s.o_valid, s.o_ol_cnt, 0).sum(-1), s.ol_valid.sum((-1, -2))))
+    out[5] = bool(np.all((s.o_carrier < 0) == s.no_valid | ~s.o_valid))
+    out[6] = bool(np.all(np.where(s.o_valid, s.o_ol_cnt, 0)
+                         == s.ol_valid.sum(-1)))
+    deliv_order = s.o_valid & (s.o_carrier >= 0)
+    out[7] = bool(np.all(s.ol_delivered ==
+                         (s.ol_valid & deliv_order[..., None])))
+    out[8] = bool(np.allclose(s.w_ytd, s.h_amount_sum.sum(-1), atol=atol))
+    out[9] = bool(np.allclose(s.d_ytd, s.h_amount_sum, atol=atol))
+    out[10] = bool(np.allclose(s.c_balance,
+                               s.c_delivered_sum - s.c_ytd_payment, atol=atol))
+    out[11] = bool(np.array_equal(order_count - no_count, delivered))
+    out[12] = bool(np.allclose(s.c_balance + s.c_ytd_payment,
+                               s.c_delivered_sum, atol=atol))
+    return out
+
+
+def tpcc_invariants() -> list[tuple[int, Invariant, bool]]:
+    """The twelve criteria as analyzer objects with the paper's grouping:
+    foreign-key style (4-7, 11) and materialized counters (1, 8-10, 12)
+    are I-confluent; sequential ID assignment (2-3) is not.
+
+    Returns (criterion number, invariant, expected confluent?).
+    """
+    fk = InvariantKind.FOREIGN_KEY
+    mv = InvariantKind.MATERIALIZED_VIEW
+    seq = InvariantKind.AUTO_INCREMENT
+    return [
+        (1, Invariant("w_ytd_sums_d_ytd", mv, "warehouse.w_ytd",
+                      params={"source": "district.d_ytd"}), True),
+        (2, Invariant("d_next_o_id_sequential", seq, "district.d_next_o_id"), False),
+        (3, Invariant("no_o_id_contiguous", seq, "new_order.o_id"), False),
+        (4, Invariant("ol_count_matches_o_ol_cnt", fk, "order_line.o_id",
+                      params={"references": "order.o_id"}), True),
+        (5, Invariant("carrier_null_iff_new_order", fk, "order.carrier",
+                      params={"references": "new_order.o_id"}), True),
+        (6, Invariant("o_ol_cnt_per_order", fk, "order.o_ol_cnt",
+                      params={"references": "order_line.o_id"}), True),
+        (7, Invariant("ol_delivery_iff_carrier", fk, "order_line.delivery_d",
+                      params={"references": "order.carrier"}), True),
+        (8, Invariant("w_ytd_sums_history", mv, "warehouse.w_ytd",
+                      params={"source": "history.h_amount"}), True),
+        (9, Invariant("d_ytd_sums_history", mv, "district.d_ytd",
+                      params={"source": "history.h_amount"}), True),
+        (10, Invariant("c_balance_materialized", mv, "customer.c_balance",
+                       params={"source": "order_line.ol_amount"}), True),
+        (11, Invariant("order_minus_neworder_delivered", fk, "order.o_id",
+                       params={"references": "new_order.o_id"}), True),
+        (12, Invariant("c_balance_plus_ytd", mv, "customer.c_balance",
+                       params={"source": "order_line.ol_amount"}), True),
+    ]
+
+
+# ---------------------------------------------------------------------------
+# TPC-C as a planner state tree: core/planner.plan() over these specs
+# selects the engine's regime per state element.
+# ---------------------------------------------------------------------------
+
+
+STOCK_INVARIANTS = ("restock", "strict", "serial")
+
+
+def tpcc_state_specs(stock_invariant: str = "restock"):
+    """TPC-C state elements as planner StateSpec declarations.
+    ``stock_invariant`` is the application's declaration for
+    STOCK.S_QUANTITY: "restock" (spec +91 rule, no floor) -> FREE,
+    "strict" (``s_quantity >= 0``, no restock) -> ESCROW, "serial" (an
+    opaque serializability demand) -> REQUIRED."""
+    from repro_torch.core.planner import StateSpec
+    from repro_torch.core.txn import Op, OpKind
+
+    def inv(name, kind, target, params=None):
+        return Invariant(name, kind, target, None, params or {})
+
+    fk = InvariantKind.FOREIGN_KEY
+    mv = InvariantKind.MATERIALIZED_VIEW
+
+    if stock_invariant == "restock":
+        stock_spec = StateSpec(
+            "stock.s_quantity", "pncounter",
+            (Op(OpKind.DECREMENT, "stock.s_quantity"),
+             Op(OpKind.INCREMENT, "stock.s_quantity")),
+            (),
+            merge_every=0,
+            note="spec restock rule: decrement-then-+91 keeps one residue "
+                 "window; no floor invariant -> commutative counter")
+    elif stock_invariant == "strict":
+        stock_spec = StateSpec(
+            "stock.s_quantity", "escrow",
+            (Op(OpKind.DECREMENT, "stock.s_quantity"),),
+            (inv("s_quantity_nonneg", InvariantKind.GREATER_THAN,
+                 "stock.s_quantity", {"threshold": -1}),),
+            merge_every=0,
+            note="hard s_quantity >= 0 floor, no restock: concurrent "
+                 "decrements can jointly cross it -> escrow shares (§8)")
+    elif stock_invariant == "serial":
+        stock_spec = StateSpec(
+            "stock.s_quantity", "lww",
+            (Op(OpKind.DECREMENT, "stock.s_quantity"),),
+            (inv("s_quantity_serializable", InvariantKind.CUSTOM,
+                 "stock.s_quantity",
+                 {"semantics": "globally ordered exact stock"}),),
+            merge_every=1,
+            note="opaque serializability demand: no local rule -> "
+                 "synchronous coordination (2PC fallback)")
+    else:
+        raise ValueError(f"unknown stock_invariant {stock_invariant!r}; "
+                         f"choose from {STOCK_INVARIANTS}")
+
+    return [
+        StateSpec(
+            "warehouse.w_ytd", "sum",
+            (Op(OpKind.INCREMENT, "warehouse.w_ytd"),),
+            (inv("w_ytd_sums_history", mv, "warehouse.w_ytd",
+                 {"source": "history.h_amount"}),),
+            merge_every=0,
+            note="criteria 1/8: materialized payment sums, commutative"),
+        StateSpec(
+            "district.d_ytd", "sum",
+            (Op(OpKind.INCREMENT, "district.d_ytd"),),
+            (inv("d_ytd_sums_history", mv, "district.d_ytd",
+                 {"source": "history.h_amount"}),),
+            merge_every=0),
+        StateSpec(
+            "district.d_next_o_id", "max",
+            (Op(OpKind.INSERT, "district.d_next_o_id"),),
+            (inv("d_next_o_id_sequential", InvariantKind.AUTO_INCREMENT,
+                 "district.d_next_o_id"),),
+            merge_every=0,
+            note="criteria 2/3: dense sequential o_ids — deferred "
+                 "commit-time assignment by the district's owning shard "
+                 "(the batched increment-and-get in apply_neworder)"),
+        StateSpec(
+            "order.rows", "versioned",
+            (Op(OpKind.INSERT, "order.rows"),),
+            (inv("ol_count_matches_o_ol_cnt", fk, "order_line.o_id",
+                 {"references": "order.rows"}),),
+            merge_every=0,
+            note="criteria 4/6: FK inserts, I-confluent"),
+        StateSpec(
+            "new_order.rows", "2pset",
+            (Op(OpKind.INSERT, "new_order.rows"),
+             Op(OpKind.CASCADING_DELETE, "new_order.rows")),
+            (inv("carrier_null_iff_new_order", fk, "order.carrier",
+                 {"references": "new_order.rows"}),),
+            merge_every=0,
+            note="criteria 5/11: Delivery's removal is a cascading "
+                 "tombstone, monotone under merge"),
+        StateSpec(
+            "order_line.rows", "versioned",
+            (Op(OpKind.INSERT, "order_line.rows"),),
+            (inv("ol_delivery_iff_carrier", fk, "order_line.rows",
+                 {"references": "order.carrier"}),),
+            merge_every=0),
+        StateSpec(
+            "customer.c_balance", "sum",
+            (Op(OpKind.INCREMENT, "customer.c_balance"),
+             Op(OpKind.DECREMENT, "customer.c_balance")),
+            (inv("c_balance_materialized", mv, "customer.c_balance",
+                 {"source": "order_line.ol_amount"}),),
+            merge_every=0,
+            note="criteria 10/12: balance is a materialized view of "
+                 "payments and delivered order-lines"),
+        StateSpec(
+            "stock.s_ytd", "sum",
+            (Op(OpKind.INCREMENT, "stock.s_ytd"),),
+            (inv("s_ytd_materialized", mv, "stock.s_ytd",
+                 {"source": "order_line.ol_qty"}),),
+            merge_every=0),
+        stock_spec,
+    ]

@@ -1,0 +1,110 @@
+"""The CUDA kernels of the port against their plain torch versions, on the
+card. Every test here needs a CUDA device and skips without one; run them
+on the GPU machine with
+
+    python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
+
+Tolerance: exact. Every output is an integer, a bool, or a float32
+product of two exact operands (``price x qty``), so kernel and plain
+version agree bit for bit.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels.escrow_admit import (  # noqa: E402
+    contention_gate, escrow_admit_cuda, residual_fcfs, residual_order)
+from repro_torch.kernels.txn_megastep import (  # noqa: E402
+    MegastepOut, txn_megastep_cuda, txn_megastep_plain)
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    logs = build.build_all()
+    for name, log in logs.items():
+        print(f"-- {name} --\n{log}")
+    return torch.device("cuda")
+
+
+def _problem(seed, B=16, L=6, A=48, n_keys=12, n_cells=40, lo=0, hi=40,
+             dup_heavy=False, device="cpu"):
+    rng = np.random.default_rng(seed)
+    cells = max(2, A // 4) if dup_heavy else A
+    lv = rng.random((B, L)) < 0.85
+    loc = (rng.random((B, L)) < 0.7) & lv
+    arrays = dict(
+        avail0=rng.integers(lo, hi + 1, A).astype(np.int32),
+        slot=rng.integers(0, cells, (B, L)).astype(np.int32),
+        qty=rng.integers(1, 11, (B, L)).astype(np.int32),
+        line_valid=lv,
+        key_local=rng.integers(0, n_keys, B).astype(np.int32),
+        cell_local=np.where(loc, rng.integers(0, n_cells, (B, L)),
+                            0).astype(np.int32),
+        local_line=loc,
+        remote_line=(rng.random((B, L)) < 0.3) & lv,
+        ramp_ts=rng.integers(0, 1 << 20, B).astype(np.int32),
+        price_row=rng.integers(1, 100, (B, L)).astype(np.float32))
+    t = {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+    return t, dict(n_keys=n_keys, n_cells=n_cells)
+
+
+CASES = [
+    dict(hi=12),                                   # scarce: mostly residual
+    dict(lo=300, hi=500),                          # plump: all fast
+    dict(dup_heavy=True, hi=50),                   # duplicate cells
+    dict(B=32, L=8, A=80, n_keys=6, n_cells=24, hi=60),
+    dict(B=256, L=15, A=4096, n_keys=640, n_cells=4000, hi=30),
+]
+
+
+def _equal(a, b, tag):
+    for name, x, y in zip(MegastepOut._fields, a, b):
+        assert x.dtype == y.dtype, f"{tag}: {name} dtype"
+        assert torch.equal(x.cpu(), y.cpu()), f"{tag}: {name}"
+
+
+@pytest.mark.parametrize("case", range(len(CASES)))
+def test_escrow_admit_kernel_matches_plain(cuda, case):
+    t, _ = _problem(case, device=cuda, **CASES[case])
+    args = (t["avail0"], t["slot"], t["qty"], t["line_valid"])
+    fast, _, _ = contention_gate(*args)
+    res_idx, n_res = residual_order(fast)
+    before = escrow_admit_cuda.launches
+    # the kernel updates its avail0 in place: give it a copy
+    fresh = args[0].clone()
+    got = escrow_admit_cuda(fresh, *args[1:], fast, res_idx, n_res)
+    torch.cuda.synchronize()
+    assert escrow_admit_cuda.launches == before + 1
+    assert got[1].data_ptr() == fresh.data_ptr()
+    want = residual_fcfs(*args, fast, res_idx, n_res)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    c_ops, a_ops = ops.escrow_admit(args[0].clone(), *args[1:])
+    c_ref, a_ref = ref.escrow_admit_ref(*args)
+    assert torch.equal(c_ops, c_ref) and torch.equal(a_ops, a_ref)
+
+
+@pytest.mark.parametrize("case", range(len(CASES)))
+def test_txn_megastep_kernel_matches_plain(cuda, case):
+    t, kw = _problem(100 + case, device=cuda, **CASES[case])
+    args = tuple(t.values())
+    avail0, slot, qty, lv = args[:4]
+    fast, _, _ = contention_gate(avail0, slot, qty, lv)
+    res_idx, n_res = residual_order(fast)
+    gate = (fast, res_idx, n_res)
+    # the kernel updates its avail0 in place: give it a copy
+    fresh = avail0.clone()
+    got = txn_megastep_cuda(fresh, slot, qty, lv, *gate, *args[4:], **kw)
+    torch.cuda.synchronize()
+    assert got.avail.data_ptr() == fresh.data_ptr()
+    plain = txn_megastep_plain(avail0, slot, qty, lv, *gate, *args[4:], **kw)
+    _equal(got, plain, "kernel vs plain")
+    _equal(ops.txn_megastep(avail0.clone(), *args[1:], **kw),
+           MegastepOut(*ref.txn_megastep_ref(*args, **kw)), "ops vs oracle")

@@ -1,0 +1,96 @@
+"""The port's structural rules.
+
+* No file of ``src/repro_torch/`` and not ``chip_smoke.py`` imports JAX or
+  anything of the JAX package ``repro``.
+* Importing ``repro_torch`` leaves ``jax`` out of ``sys.modules``.
+* Entry points run on the CUDA card unless the caller passes
+  ``device="cpu"``: with no card they raise instead of falling back.
+* The kernel modules hold no ``try`` (no path that falls back from a
+  kernel to its plain version).
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.txn import tpcc  # noqa: E402
+from repro_torch.txn.engine import single_host_engine  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_port_imports_neither_jax_nor_reference():
+    files = _port_files()
+    assert len(files) > 10
+    offenders = {str(p.relative_to(ROOT)): sorted(
+        _imported_roots(p) & {"jax", "jaxlib", "repro"}) for p in files}
+    assert {k: v for k, v in offenders.items() if v} == {}
+
+
+def test_importing_port_loads_no_jax():
+    code = ("import sys, repro_torch, repro_torch.txn, repro_torch.kernels;"
+            "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
+            "or m.startswith(('jax.', 'repro.'))];"
+            "assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   timeout=120)
+
+
+def test_kernel_modules_have_no_fallback():
+    for name in ("ops.py", "escrow_admit.py", "txn_megastep.py"):
+        tree = ast.parse((PORT / "kernels" / name).read_text())
+        assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), name
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    scale = tpcc.TPCCScale()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        single_host_engine(scale)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpcc.init_state(scale)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpcc.generate_neworder(np.random.default_rng(0), scale, 4)
+    # asked for explicitly, the CPU is fine
+    eng = single_host_engine(scale, device="cpu")
+    assert eng.device == torch.device("cpu")
+
+
+def test_unported_paths_raise_not_implemented():
+    scale = tpcc.TPCCScale()
+    for kw in (dict(escrow_layout="dense"), dict(n_shards=2)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            single_host_engine(scale, stock_invariant="strict", device="cpu",
+                               **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        single_host_engine(scale, stock_invariant="serial", device="cpu")
+    from repro_torch.txn.drivers import run_loop
+    eng = single_host_engine(scale, device="cpu")
+    for kw in (dict(fused=True), dict(payments=True), dict(reads=True),
+               dict(deliveries=True), dict(retry_cap=4)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            run_loop(eng, tpcc.init_state(scale, device="cpu"),
+                     batch_per_shard=2, n_batches=1, **kw)

@@ -1,0 +1,244 @@
+"""The port's TPC-C New-Order (``repro_torch.txn.tpcc``, ``audit``,
+``core``) against the JAX reference on shared seeded inputs, on the CPU.
+
+Tolerance: exact (values and dtypes) for every int and bool output and for
+every state field, ``s_ytd`` and ``ol_amount`` included — their float32
+sums have integer or exactly-representable addends. The per-transaction
+``total`` reduces over the order's lines in another order than XLA does,
+so it is held to ``rtol=1e-6``.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+pytest.importorskip("jax")   # the reference side
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core.lattice import HotSetEscrow as JHotSetEscrow  # noqa: E402
+from repro.core.planner import plan as jplan  # noqa: E402
+from repro.txn import audit as jaudit  # noqa: E402
+from repro.txn import tpcc as jt  # noqa: E402
+from repro_torch.convert import (batch_from_numpy, escrow_from_numpy,  # noqa: E402
+                                 state_from_numpy, state_to_numpy)
+from repro_torch.core.lattice import HotSetEscrow  # noqa: E402
+from repro_torch.core.planner import plan  # noqa: E402
+from repro_torch.txn import audit as taudit  # noqa: E402
+from repro_torch.txn import tpcc as tt  # noqa: E402
+
+CPU = "cpu"
+SMALL = dict(n_warehouses=2, districts=2, customers=8, n_items=64,
+             order_capacity=256, max_lines=15)
+
+
+def _mismatches(ref, port):
+    """Fields whose dtype, shape or value differ (port side as numpy)."""
+    ref = jax.device_get(ref)
+    port = state_to_numpy(port)
+    bad = []
+    for name, x, y in zip(ref._fields, ref, port):
+        x = np.asarray(x)
+        if x.dtype != y.dtype or x.shape != y.shape or \
+                not np.array_equal(x, y):
+            bad.append(name)
+    return bad
+
+
+def _np(x):
+    return np.asarray(jax.device_get(x))
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_init_state_matches_reference(seed):
+    ref = jt.init_state(jt.TPCCScale(), seed=seed)
+    port = tt.init_state(tt.TPCCScale(), seed=seed, device=CPU)
+    assert _mismatches(ref, port) == []
+    # the converter route lands on the same state
+    assert _mismatches(ref, state_from_numpy(jax.device_get(ref), CPU)) == []
+
+
+@pytest.mark.parametrize("item_skew", [0.0, 1.2])
+def test_generate_neworder_matches_reference(item_skew):
+    kw = dict(remote_frac=0.2, ts0=7, item_skew=item_skew)
+    ref = jt.generate_neworder(np.random.default_rng(1), jt.TPCCScale(), 64,
+                               **kw)
+    port = tt.generate_neworder(np.random.default_rng(1), tt.TPCCScale(), 64,
+                                device=CPU, **kw)
+    assert _mismatches(ref, port) == []
+    assert _mismatches(ref, batch_from_numpy(jax.device_get(ref), CPU)) == []
+
+
+def test_apply_neworder_matches_reference_over_batches():
+    """N seeded batches at the default TPCCScale(), merge regime."""
+    scale, tscale = jt.TPCCScale(), tt.TPCCScale()
+    ref = jt.init_state(scale, seed=2)
+    port = tt.init_state(tscale, seed=2, device=CPU)
+    step = jax.jit(lambda s, b: jt.apply_neworder(s, b, scale))
+    r1, r2 = np.random.default_rng(5), np.random.default_rng(5)
+    for i in range(5):
+        jb = jt.generate_neworder(r1, scale, 48, remote_frac=0.1, ts0=48 * i)
+        tb = tt.generate_neworder(r2, tscale, 48, remote_frac=0.1,
+                                  ts0=48 * i, device=CPU)
+        ref, jd, jtot = step(ref, jb)
+        port, td, ttot = tt.apply_neworder(port, tb, tscale)
+        assert _mismatches(jd, td) == [], i
+        np.testing.assert_allclose(_np(jtot), ttot.numpy(), rtol=1e-6)
+    assert _mismatches(ref, port) == []
+
+
+@pytest.mark.parametrize("effects", ["scan", "fused"])
+@pytest.mark.parametrize("admission", ["scan", "kernel"])
+def test_escrow_sparse_matches_reference(admission, effects):
+    """The strict-stock sparse New-Order, step by step: state, spent,
+    outbox and committed mask bit-equal, totals to rtol 1e-6, on a stream
+    with hot, cold-local and cold-remote lines where some transactions
+    commit and some abort."""
+    scale = jt.TPCCScale(**SMALL)
+    tscale = tt.TPCCScale(**SMALL)
+    ref = jt.init_state(scale, seed=1)
+    ref = ref._replace(s_quantity=ref.s_quantity * 2)
+    port = state_from_numpy(jax.device_get(ref), CPU)
+    keys = jt.select_hot_cells(scale, 4)
+    shares = np.asarray(ref.s_quantity).reshape(-1)[keys]
+    jk, jsh = jnp.asarray(keys), jnp.asarray(shares)
+    tk, tsh = torch.from_numpy(keys), torch.from_numpy(shares.copy())
+    jsp, tsp = jnp.zeros_like(jsh), torch.zeros_like(tsh)
+    step = jax.jit(lambda s, sp, b: jt.apply_neworder_escrow_sparse(
+        s, jk, jsh, sp, b, scale, admission=admission, effects=effects))
+    r1, r2 = np.random.default_rng(7), np.random.default_rng(7)
+    commits = aborts = 0
+    for i in range(6):
+        kw = dict(remote_frac=0.3, ts0=16 * i, item_skew=1.1)
+        jb = jt.generate_neworder(r1, scale, 16, **kw)
+        tb = tt.generate_neworder(r2, tscale, 16, device=CPU, **kw)
+        ref, jsp, jd, jtot, jc = step(ref, jsp, jb)
+        port, tsp, td, ttot, tc = tt.apply_neworder_escrow_sparse(
+            port, tk, tsh, tsp, tb, tscale, admission=admission,
+            effects=effects)
+        np.testing.assert_array_equal(_np(jsp), tsp.numpy())
+        np.testing.assert_array_equal(_np(jc), tc.numpy())
+        assert tsp.dtype == torch.int32 and tc.dtype == torch.bool
+        assert _mismatches(jd, td) == [], i
+        np.testing.assert_allclose(_np(jtot), ttot.numpy(), rtol=1e-6)
+        commits += int(tc.sum())
+        aborts += int((~tc).sum())
+    assert _mismatches(ref, port) == []
+    assert commits > 0 and aborts > 0
+
+
+def test_strict_tiered_drain_matches_reference():
+    """The owner-side strict drain: hot entries land, cold cells land
+    all-or-nothing; the reject count and the state agree."""
+    scale = jt.TPCCScale(**SMALL)
+    ref = jt.init_state(scale, seed=4)
+    port = state_from_numpy(jax.device_get(ref), CPU)
+    keys = jt.select_hot_cells(scale, 4)
+    rng = np.random.default_rng(11)
+    R = 200
+    cols = dict(dst_w=rng.integers(0, 2, R), i_idx=rng.integers(0, 64, R),
+                qty=rng.integers(1, 40, R), mask=rng.random(R) < 0.8,
+                remote=rng.random(R) < 0.5)
+    cols = {k: v.astype(np.int32) if v.dtype != np.bool_ else v
+            for k, v in cols.items()}
+    ref, jr = jt.apply_stock_updates_strict_tiered(
+        ref, jnp.asarray(keys), *(jnp.asarray(v) for v in cols.values()),
+        n_items=64)
+    port, tr = tt.apply_stock_updates_strict_tiered(
+        port, torch.from_numpy(keys),
+        *(torch.from_numpy(v) for v in cols.values()), n_items=64)
+    assert int(jr) == int(tr) > 0 and tr.dtype == torch.int32
+    assert _mismatches(ref, port) == []
+
+
+def test_escrow_share_and_hot_set_match_reference():
+    rng = np.random.default_rng(3)
+    q = rng.integers(0, 50, 12).astype(np.int32)
+    keys = np.sort(rng.choice(100, 12, replace=False)).astype(np.int32)
+    for alive in (None, np.array([1, 0, 1], np.int32)):
+        for r in range(3):
+            want = jt.escrow_share_for(jnp.asarray(q), r, 3, alive=alive)
+            got = tt.escrow_share_for(torch.from_numpy(q), r, 3, alive=alive)
+            np.testing.assert_array_equal(_np(want), got.numpy())
+            assert got.dtype == torch.int32
+        j = JHotSetEscrow.make(3, keys, q, alive=alive)
+        t = HotSetEscrow.make(3, torch.from_numpy(keys), torch.from_numpy(q),
+                              alive=alive)
+        assert _mismatches(j, t) == []
+        np.testing.assert_array_equal(_np(j.remaining()),
+                                      t.remaining().numpy())
+    j = JHotSetEscrow.make(2, keys, q)
+    t = escrow_from_numpy(jax.device_get(j), CPU)
+    for key, amount in ((keys[3], 4), (keys[3], 1000), (7777, 1)):
+        j, jok = j.try_spend(1, key, amount)
+        t, tok = t.try_spend(1, torch.tensor(key), amount)
+        assert bool(jok) == bool(tok)
+    assert _mismatches(j, t) == []
+    j2 = j.refresh(jnp.asarray(q // 2))
+    t2 = t.refresh(torch.from_numpy(q // 2))
+    assert _mismatches(j2, t2) == []
+    assert _mismatches(JHotSetEscrow.join(j, j2), HotSetEscrow.join(t, t2)) \
+        == []
+
+
+def _drained_states():
+    """A merge-regime state after a few batches (consistent), and a copy
+    with one district counter broken (inconsistent), both sides."""
+    scale = jt.TPCCScale(**SMALL)
+    ref = jt.init_state(scale, seed=6)
+    rng = np.random.default_rng(6)
+    for i in range(12):
+        ref, _, _ = jt.apply_neworder(ref, jt.generate_neworder(
+            rng, scale, 16, ts0=16 * i), scale)
+    ref = jax.device_get(ref)
+    broken = ref._replace(d_next_o_id=np.asarray(ref.d_next_o_id) + np.eye(
+        2, 2, dtype=np.int32))
+    return [(ref, state_from_numpy(ref, CPU)),
+            (broken, state_from_numpy(broken, CPU))]
+
+
+def test_check_consistency_and_audit_verdicts_match_reference():
+    q0 = np.asarray(jt.init_state(jt.TPCCScale(**SMALL), seed=6).s_quantity)
+    verdicts = []
+    for ref, port in _drained_states():
+        want = jt.check_consistency(ref)
+        assert tt.check_consistency(port) == want
+        for kw in (dict(), dict(strict_stock=True, initial_stock=q0)):
+            jrep = jaudit.audit_tpcc(ref, **kw)
+            trep = taudit.audit_tpcc(port, **kw)
+            assert trep.checks == jrep.checks and trep.ok == jrep.ok, kw
+            verdicts.append(trep.ok)
+    # restock breaks strict conservation; the broken counter breaks both
+    assert verdicts == [True, False, False, False]
+
+
+@pytest.mark.parametrize("stock_invariant", ["restock", "strict", "serial"])
+def test_planner_copies_give_reference_verdicts(stock_invariant):
+    want = jplan(jt.tpcc_state_specs(stock_invariant))
+    got = plan(tt.tpcc_state_specs(stock_invariant))
+    assert [(e.spec.name, e.coord_class.value, e.strategy.value,
+             [(i, o, str(v)) for i, o, v in e.verdicts])
+            for e in want.entries] == \
+        [(e.spec.name, e.coord_class.value, e.strategy.value,
+          [(i, o, str(v)) for i, o, v in e.verdicts])
+         for e in got.entries]
+    assert [(n, inv.name, inv.kind.value, c)
+            for n, inv, c in jt.tpcc_invariants()] == \
+        [(n, inv.name, inv.kind.value, c)
+         for n, inv, c in tt.tpcc_invariants()]
+
+
+def test_resolve_admission_and_cutover_memo():
+    assert tt.resolve_admission("auto", tt.AUTO_KERNEL_MIN_BATCH - 1) == \
+        jt.resolve_admission("auto", jt.AUTO_KERNEL_MIN_BATCH - 1)
+    assert tt.resolve_admission("kernel", 1) == "kernel"
+    with pytest.raises(ValueError, match="unknown admission"):
+        tt.resolve_admission("warp", 8)
+    with pytest.raises(ValueError, match="unknown effects"):
+        tt.resolve_effects("warp")
+    tt._CUTOVER_CACHE.clear()
+    choice = tt.resolve_admission_cutover(8, 4, device=CPU, cells=64)
+    assert choice in ("scan", "kernel")
+    assert tt._CUTOVER_CACHE == {("cpu", 8, 4): choice}
+    assert tt.resolve_admission("auto", 8, 4, CPU) == choice

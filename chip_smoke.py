@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's TPC-C New-Order main path on one CUDA card.
+"""Drive the PyTorch port's TPC-C main paths on one CUDA card: New-Order
+alone, and the five-transaction mix.
 
     python3 chip_smoke.py
 
 From the root of a checkout, on a machine with an NVIDIA H100. It builds the
-two CUDA kernels of the port from ``src/repro_torch/kernels/csrc`` (one
+three CUDA kernels of the port from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, started together, into ``build/kernels/``), then:
 
   1. prints the card and its power limit, and the build time;
@@ -20,19 +21,31 @@ two CUDA kernels of the port from ``src/repro_torch/kernels/csrc`` (one
   5. the same escrow run through the plain path on the card (admission and
      effects "scan"), which must end bit-equal to phase 4;
   6. a small run through the kernels on the card against the plain path
-     on the CPU, bit-equal.
+     on the CPU, bit-equal: New-Order alone and the five-transaction mix;
+  7. the mix in the merge regime (New-Order, Payment, Order-Status through
+     the ramp_read kernel, Stock-Level, Delivery), then the audit, whose
+     twelve criteria now see every money column move;
+  8. the mix in the escrow regime through the megastep kernel, then the
+     strict audit (txn_megastep and ramp_read on one path);
+  9. the ramp_read kernel bit-exact against its plain version on the card,
+     and both timed: (a) the main path's Order-Status problem on phase 7's
+     final state, as it is and with half the lines concealed (so the
+     lookback repairs), and (b) the whole order table as one problem of
+     W * D * OC rows, a bandwidth problem.
 
 The deployment is TPC-C at the specification's per-warehouse cardinalities
 (TPC-C standard specification, clause 4.3.3.1: 10 districts, 3000 customers
 per district, 100,000 items, up to 15 lines per order) with the repo's ring
 of 8192 orders per district, 64 warehouses on the card as one shard. The
-traffic is New-Order batches of 256 with 1% remote lines (spec), 32 batches,
-an anti-entropy drain every 8 batches and an escrow refresh at every drain.
+traffic is batches of 256 New-Orders with 1% remote lines (spec), 32
+batches, an anti-entropy drain every 8 batches and an escrow refresh at
+every drain; the mix adds per batch 256 Payments, 64 Order-Status and 64
+Stock-Level queries (``read_frac`` 0.25) and one Delivery per district.
 
-Launch counters are set to 0 just before phases 3-4 (the main path) and
-read just after. The second-to-last line of output is the kernels' JSON
-record; the last line is the device record. Any failure exits non-zero;
-so does a machine without a CUDA device.
+Launch counters are set to 0 just before each main path (phases 3-4, 7
+and 8) and read just after. The second-to-last line of output is the
+kernels' JSON record; the last line is the device record. Any failure exits
+non-zero; so does a machine without a CUDA device.
 """
 
 from __future__ import annotations
@@ -54,6 +67,8 @@ REMOTE_FRAC = 0.01
 ITEM_SKEW = 1.2          # the escrow demo's Zipfian item profile
 STOCK_MULTIPLIER = 20    # the escrow demo's inflated initial stock
 SEED = 0
+READ_FRAC = 0.25         # Order-Status and Stock-Level queries per New-Order
+MIX = dict(payments=True, reads=True, deliveries=True, read_frac=READ_FRAC)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 SPIN_CYCLES = 100_000_000   # ~50 ms at the H100's 1.98 GHz boost clock
 
@@ -221,9 +236,9 @@ def kernel_parity(eng, state, esc):
 
 
 def escrow_run(scale, admission, effects, device=None, batch=BATCH,
-               n_batches=N_BATCHES, audit=True):
-    import torch
-
+               n_batches=N_BATCHES, audit=True, mix=None):
+    """The escrow main path (``mix``: the run_loop knobs of the
+    five-transaction mix). Returns (state, escrow, stats, audit report)."""
     from repro_torch.txn import assert_audit, init_state, run_loop
     from repro_torch.txn.engine import single_host_engine
 
@@ -236,7 +251,8 @@ def escrow_run(scale, admission, effects, device=None, batch=BATCH,
     state, esc, st = run_loop(
         eng, state, batch_per_shard=batch, n_batches=n_batches,
         remote_frac=REMOTE_FRAC, merge_every=MERGE_EVERY,
-        refresh_every=REFRESH_EVERY, item_skew=ITEM_SKEW, seed=SEED)
+        refresh_every=REFRESH_EVERY, item_skew=ITEM_SKEW, seed=SEED,
+        **(mix or {}))
     rep = ""
     if audit:
         t0 = time.perf_counter()
@@ -244,6 +260,91 @@ def escrow_run(scale, admission, effects, device=None, batch=BATCH,
                            strict_stock=True).describe()
         rep += f" in {time.perf_counter() - t0:.1f} s"
     return state, esc, st, rep
+
+
+def ramp_read_bytes(args, got) -> tuple[int, int]:
+    """The bytes the fused read must move on this problem: the metadata of
+    every row; the stamp of each needed line, its visibility where the
+    stamp matches, its prepared bit where a matching line is invisible,
+    its amount and item id where it is present; every output once. Returns
+    (those bytes, the bytes of every input and output once)."""
+    import torch
+
+    req_ts, nlines, ol_ts, ol_vis = args[:4]
+    line = torch.arange(ol_ts.shape[1], device=ol_ts.device)
+    need = line[None, :] < nlines[:, None]
+    match = need & (ol_ts == req_ts[:, None])
+    lines = (4 * int(need.sum()) + int(match.sum())
+             + int((match & ~ol_vis).sum()) + 8 * int(got[0].sum()))
+    return (_nbytes(req_ts, nlines) + lines + _nbytes(*got),
+            _nbytes(*args, *got))
+
+
+def ramp_read_check_and_time(tag, args, reps):
+    """The ramp_read kernel against its plain version on the card on one
+    problem, bit for bit, then both timed, and the bound from the bytes
+    this problem's data makes it move (:func:`ramp_read_bytes`). Returns
+    the row."""
+    from repro_torch.kernels.ramp_read import ramp_read_cuda, ramp_read_plain
+
+    got = ramp_read_cuda(*args)
+    err = _max_abs_err(got, ramp_read_plain(*args))
+    R = args[0].shape[0]
+    repaired = int(got[5].sum())
+    print(f"parity [ramp_read, {tag}] rows={R} lines_read="
+          f"{int(got[4].sum())} repaired={repaired} max_abs_err={err}")
+    if err:
+        raise AssertionError(f"ramp_read disagrees with plain: {tag}")
+    need_bytes, all_bytes = ramp_read_bytes(args, got)
+    row = dict(max_abs_err=err, rows=R, repaired=repaired,
+               bytes=need_bytes, bytes_all_streams=all_bytes,
+               ms=_time_ms(lambda: ramp_read_cuda(*args), reps),
+               plain_ms=_time_ms(lambda: ramp_read_plain(*args), 3))
+    row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+    print(f"timing [ramp_read, {tag}] {json.dumps(row)}")
+    return row
+
+
+def ramp_read_problems(eng, state):
+    """Phase 9. Problem (a): the main path's first Order-Status batch on
+    ``state``, gathered as ``apply_order_status`` gathers it; then the same
+    queries, each asking for the customer of its district's latest order
+    (the stream's customers mostly have none: 3000 a district), on a copy
+    with half the lines concealed, so that the lookback repairs. Problem
+    (b): the whole order table of that copy as ``[W * D * OC, L]``
+    zero-copy views. Returns the three rows."""
+    import torch
+
+    from repro_torch.txn import ramp
+    from repro_torch.txn.drivers import generate_mix_batches
+
+    os_batch = generate_mix_batches(
+        eng, batch_per_shard=BATCH, n_batches=1, remote_frac=REMOTE_FRAC,
+        read_frac=READ_FRAC, seed=SEED)[2][0]
+    wl, d = os_batch.w.long(), os_batch.d.long()
+    OC = state.o_c_id.shape[-1]
+    latest = ((state.d_next_o_id[wl, d] - 1) % OC).long()
+    owners = os_batch._replace(c=state.o_c_id[wl, d, latest])
+    gen = torch.Generator(device=state.ol_vis.device).manual_seed(SEED)
+    hidden = ramp.conceal_lines(state, torch.rand(
+        state.ol_vis.shape, generator=gen, device=state.ol_vis.device) < 0.5)
+    rows = []
+    for tag, st, batch in (("a: main path", state, os_batch),
+                           ("a: latest orders' customers, half concealed",
+                            hidden, owners)):
+        slot, found = ramp.order_status_slots(st, batch)
+        rows.append(ramp_read_check_and_time(tag, ramp.order_status_lines(
+            st, batch, slot, found), 200))
+    L = state.ol_ts.shape[-1]
+    whole = (hidden.o_ts.view(-1),
+             torch.where(hidden.o_valid, hidden.o_ol_cnt, 0).view(-1),
+             hidden.ol_ts.view(-1, L), hidden.ol_vis.view(-1, L),
+             hidden.ol_valid.view(-1, L), hidden.ol_amount.view(-1, L),
+             hidden.ol_i_id.view(-1, L))
+    rows.append(ramp_read_check_and_time("b: whole order table", whole, 20))
+    if rows[1]["repaired"] <= 0 or rows[2]["repaired"] <= 0:
+        raise AssertionError("the concealed problems repaired no line")
+    return rows
 
 
 def main() -> int:
@@ -256,6 +357,7 @@ def main() -> int:
 
     from repro_torch.kernels import build
     from repro_torch.kernels.escrow_admit import escrow_admit_cuda
+    from repro_torch.kernels.ramp_read import ramp_read_cuda
     from repro_torch.kernels.txn_megastep import txn_megastep_cuda
     from repro_torch.txn import (TPCCScale, assert_audit, init_state,
                                  run_loop)
@@ -288,10 +390,11 @@ def main() -> int:
     parity_err = kernel_parity(eng, tables, eng.init_escrow(tables))
     del tables
 
-    # -- phases 3-4: the main path, launch counts from 0 ---------------------
+    # -- phases 3-4: the New-Order main path, launch counts from 0 ----------
     escrow_admit_cuda.launches = 0
     txn_megastep_cuda.launches = 0
     txn_megastep_cuda.residuals = None
+    ramp_read_cuda.launches = 0
 
     merge = single_host_engine(scale)
     state = init_state(scale, seed=SEED)
@@ -328,6 +431,8 @@ def main() -> int:
     for k, n in launches.items():
         if n == 0:
             raise AssertionError(f"{k} was not launched on the main path")
+    if ramp_read_cuda.launches:
+        raise AssertionError("New-Order alone launched ramp_read")
     bad = _same(s_fused, s_adm) + _same(e_fused, e_adm)
     if bad:
         raise AssertionError(f"megastep path != escrow_admit path: {bad}")
@@ -356,22 +461,73 @@ def main() -> int:
     # -- phase 6: small input, kernels on the card vs plain on the CPU -------
     small = TPCCScale(n_warehouses=2, districts=2, customers=8, n_items=400,
                       order_capacity=64)
-    sk, ek, mk, _ = escrow_run(small, "kernel", "fused", device="cuda",
-                               batch=16, n_batches=6)
-    sc, ec, mc, _ = escrow_run(small, "scan", "scan", device="cpu",
-                               batch=16, n_batches=6, audit=False)
     cpu = lambda t: type(t)(*(x.cpu() for x in t))
-    bad = _same(cpu(sk), sc) + _same(cpu(ek), ec)
-    if bad or counts(mk) != counts(mc):
-        raise AssertionError(f"small run: card != CPU plain path: {bad}")
-    print(f"small run: card kernels == CPU plain path, counts {counts(mk)}")
+    mix_counts = lambda m: counts(m) + (
+        m.payments, m.order_statuses, m.stock_levels, m.deliveries,
+        m.reads_found, m.fractures_observed, m.lines_repaired)
+    for tag, mix in (("New-Order", None), ("five-transaction mix", MIX)):
+        sk, ek, mk, _ = escrow_run(small, "kernel", "fused", device="cuda",
+                                   batch=16, n_batches=6, mix=mix)
+        sc, ec, mc, _ = escrow_run(small, "scan", "scan", device="cpu",
+                                   batch=16, n_batches=6, audit=False,
+                                   mix=mix)
+        bad = _same(cpu(sk), sc) + _same(cpu(ek), ec)
+        if bad or mix_counts(mk) != mix_counts(mc):
+            raise AssertionError(f"small run ({tag}): card != CPU plain "
+                                 f"path: {bad} {mix_counts(mk)} "
+                                 f"{mix_counts(mc)}")
+        print(f"small run ({tag}): card kernels == CPU plain path, counts "
+              f"{mix_counts(mk)}")
 
-    routes = {"escrow_admit": "src/repro_torch/kernels/csrc/escrow_admit.cu",
-              "txn_megastep": "src/repro_torch/kernels/csrc/txn_megastep.cu"}
+    # -- phase 7: the mix in the merge regime, launch counts from 0 ----------
+    ramp_read_cuda.launches = 0
+    state = init_state(scale, seed=SEED)
+    state, _, mm = run_loop(merge, state, batch_per_shard=BATCH,
+                            n_batches=N_BATCHES, remote_frac=REMOTE_FRAC,
+                            merge_every=MERGE_EVERY, seed=SEED, **MIX)
+    launches["ramp_read"] = ramp_read_cuda.launches
+    t0 = time.perf_counter()
+    rep = assert_audit(state).describe()
+    print(f"mix, merge: {mm.neworders} New-Order, {mm.payments} Payment, "
+          f"{mm.order_statuses} Order-Status ({mm.reads_found} found), "
+          f"{mm.stock_levels} Stock-Level, {mm.deliveries} Delivery; "
+          f"{mm.throughput:,.0f} txn/s; fractures_observed="
+          f"{mm.fractures_observed} lines_repaired={mm.lines_repaired}; "
+          f"ramp_read launches={launches['ramp_read']}; {rep} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    if mm.fractures_observed or launches["ramp_read"] < N_BATCHES:
+        raise AssertionError("the merge mix observed a fracture or did not "
+                             "read through the ramp_read kernel")
+
+    # -- phase 8: the mix in the escrow regime, launch counts from 0 ---------
+    ramp_read_cuda.launches = 0
+    txn_megastep_cuda.launches = 0
+    _, _, me, rep = escrow_run(scale, "kernel", "fused", mix=MIX)
+    print(f"mix, escrow (megastep kernel): {me.neworders} New-Order "
+          f"committed, {me.aborts} aborts, {me.payments} Payment, "
+          f"{me.order_statuses} Order-Status, {me.stock_levels} "
+          f"Stock-Level, {me.deliveries} Delivery; {me.throughput:,.0f} "
+          f"txn/s; fractures_observed={me.fractures_observed}; launches "
+          f"txn_megastep={txn_megastep_cuda.launches} ramp_read="
+          f"{ramp_read_cuda.launches}; {rep}")
+    if me.fractures_observed or min(txn_megastep_cuda.launches,
+                                    ramp_read_cuda.launches) < N_BATCHES:
+        raise AssertionError("the escrow mix observed a fracture or missed "
+                             "a kernel")
+
+    # -- phase 9: the ramp_read kernel on problems (a) and (b) ---------------
+    read_a, read_a_hidden, read_b = ramp_read_problems(merge, state)
+    del state
+    timing["ramp_read"] = dict(read_a, max_abs_err=max(
+        r["max_abs_err"] for r in (read_a, read_a_hidden, read_b)))
+
+    parity_err["ramp_read"] = 0.0
     replaces = {"escrow_admit": "src/repro/kernels/escrow_admit.py:184",
-                "txn_megastep": "src/repro/kernels/txn_megastep.py:255"}
+                "txn_megastep": "src/repro/kernels/txn_megastep.py:255",
+                "ramp_read": "src/repro/kernels/ramp_read.py:73"}
     record = {"kernels": [
-        {"name": k, "route": "cuda", "source": routes[k],
+        {"name": k, "route": "cuda",
+         "source": f"src/repro_torch/kernels/csrc/{k}.cu",
          "replaces": replaces[k], "launches": launches[k],
          "max_abs_err": max(parity_err[k], timing[k]["max_abs_err"]),
          "ms": timing[k]["ms"],

@@ -14,7 +14,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.lattice import HotSetEscrow
-from repro_torch.txn.tpcc import NewOrderBatch, TPCCState
+from repro_torch.txn.tpcc import (NewOrderBatch, OrderStatusBatch,
+                                  PaymentBatch, StockLevelBatch, TPCCState)
 
 
 def _pinned(a) -> np.ndarray:
@@ -48,6 +49,21 @@ def escrow_from_numpy(src, device) -> HotSetEscrow:
 def batch_from_numpy(src, device) -> NewOrderBatch:
     """A reference ``NewOrderBatch`` as the port's, on ``device``."""
     return _from_numpy(NewOrderBatch, src, device)
+
+
+def payment_batch_from_numpy(src, device) -> PaymentBatch:
+    """A reference ``PaymentBatch`` as the port's, on ``device``."""
+    return _from_numpy(PaymentBatch, src, device)
+
+
+def order_status_batch_from_numpy(src, device) -> OrderStatusBatch:
+    """A reference ``OrderStatusBatch`` as the port's, on ``device``."""
+    return _from_numpy(OrderStatusBatch, src, device)
+
+
+def stock_level_batch_from_numpy(src, device) -> StockLevelBatch:
+    """A reference ``StockLevelBatch`` as the port's, on ``device``."""
+    return _from_numpy(StockLevelBatch, src, device)
 
 
 def state_to_numpy(nt: NamedTuple) -> NamedTuple:

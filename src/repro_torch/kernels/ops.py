@@ -1,10 +1,11 @@
-"""Public entries for the slice's two kernels.
+"""Public entries for the port's three kernels.
 
-Each entry runs the contention gate as torch ops and then sends the
-problem where its tensors lie: a CPU tensor goes to the plain torch
-version, a CUDA tensor to the hand-written kernel. There is no other path.
-On the card the kernel updates ``avail0`` in place, so callers pass a
-vector they no longer need (the engine builds a fresh one every batch).
+Each entry sends the problem where its tensors lie: a CPU tensor goes to
+the plain torch version, a CUDA tensor to the hand-written kernel. There
+is no other path. The two admission entries run the contention gate as
+torch ops first; on the card their kernels update ``avail0`` in place, so
+callers pass a vector they no longer need (the engine builds a fresh one
+every batch).
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import torch
 
 from .escrow_admit import (contention_gate, escrow_admit_cuda, residual_fcfs,
                            residual_order, settle_fast)
+from .ramp_read import ramp_read_cuda, ramp_read_plain
 from .txn_megastep import MegastepOut, txn_megastep_cuda, txn_megastep_plain
 
 
@@ -49,3 +51,15 @@ def txn_megastep(avail0, slot, qty, line_valid, key_local, cell_local,
     return mega(avail0, slot, qty, line_valid, fast, res_idx, n_res,
                 key_local, cell_local, local_line, remote_line, ramp_ts,
                 price_row, n_keys=n_keys, n_cells=n_cells)
+
+
+def ramp_read_select(req_ts, nlines, ol_ts, ol_vis, ol_prep, amount, i_id
+                     ) -> tuple[torch.Tensor, ...]:
+    """The fused RAMP read: fracture detection, lookback select and the
+    per-query aggregation. Bit-exact with ``ref.ramp_read_ref``; on the card
+    one kernel (``ramp_read_cuda``), on the CPU its plain version.
+
+    Returns (present, amount_sel, i_id_sel, amount_sum, lines_read,
+    repaired)."""
+    read = ramp_read_cuda if ol_ts.is_cuda else ramp_read_plain
+    return read(req_ts, nlines, ol_ts, ol_vis, ol_prep, amount, i_id)

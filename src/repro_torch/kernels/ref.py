@@ -1,15 +1,28 @@
-"""Definitional oracles for the two kernels of the New-Order slice, as
-plain torch (the port's counterparts of ``repro.kernels.ref``
-``escrow_admit_ref`` and ``txn_megastep_ref``).
+"""Definitional oracles for the port's kernels, as plain torch (the port's
+counterparts of ``repro.kernels.ref`` ``escrow_admit_ref``,
+``txn_megastep_ref`` and ``ramp_read_ref``), and the line-order sum they
+and the transactions share.
 
 They are the ground truth the kernels and their plain versions are held
 to: a B-step sequential FCFS walk over the whole batch, the ``[B, B]``
-committed-rank matrix, and plain scatter-adds.
+committed-rank matrix, plain scatter-adds, and the RAMP read's masks.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def sum_lines(x: torch.Tensor) -> torch.Tensor:
+    """``x [..., L]`` summed over the line axis IN LINE ORDER: from 0, add
+    line 0, then line 1, and so on. This is the order in which XLA reduces
+    a float row, so the sum is bit-equal to the reference's ``sum(-1)``;
+    ``torch.sum`` reassociates (differently on the CPU and the card) and
+    is not."""
+    out = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    for l in range(x.shape[-1]):
+        out = out + x[..., l]
+    return out
 
 
 def escrow_admit_ref(avail0: torch.Tensor, slot: torch.Tensor,
@@ -76,3 +89,27 @@ def txn_megastep_ref(avail0, slot, qty, line_valid, key_local, cell_local,
     amount = torch.where(line_valid, price_row * qty.to(price_row.dtype),
                          0.0)
     return (committed, avail, rank, d_count, *slabs, ol_ts, amount)
+
+
+def ramp_read_ref(req_ts, nlines, ol_ts, ol_vis, ol_prep, amount, i_id):
+    """Fused RAMP read oracle (``txn/ramp.read_lines`` plus the per-query
+    aggregation). Round 1 reads the committed layer, the commit-record
+    metadata (``req_ts``, ``nlines``) detects fractured sibling sets, and
+    the lookback round repairs from the retained prepared versions.
+
+    req_ts/nlines [R] int32; ol_ts/i_id [R, L] int32; ol_vis/ol_prep
+    [R, L] bool; amount [R, L] float32. Returns (present, amount_sel,
+    i_id_sel, amount_sum, lines_read, repaired).
+    """
+    L = ol_ts.shape[-1]
+    line = torch.arange(L, dtype=torch.int32, device=ol_ts.device)[None, :]
+    need = line < nlines[:, None]
+    match = ol_ts == req_ts[:, None]
+    round1 = ol_vis & match & need
+    fractured = need & ~round1
+    repaired = fractured & (ol_prep & match)
+    present = round1 | repaired
+    amt_sel = torch.where(present, amount, 0.0)
+    return (present, amt_sel, torch.where(present, i_id, -1),
+            sum_lines(amt_sel), present.sum(1).to(torch.int32),
+            repaired.sum(1).to(torch.int32))

@@ -1,8 +1,13 @@
-"""The New-Order closed loop on one card: the port of
+"""The TPC-C closed loop on one card: the port of
 ``repro.txn.drivers.run_loop`` on its per-batch dispatch path.
 
-* **stream** — one source draws the home-partitioned New-Order batches
-  (the reference's numpy stream, so both packages run the same orders);
+* **stream** — one source draws the home-partitioned batches of every
+  transaction type (the reference's numpy stream, so both packages run the
+  same transactions);
+* **mix** — ``payments``, ``reads`` (Order-Status and Stock-Level, through
+  the RAMP reads) and ``deliveries`` add the rest of the five-transaction
+  mix to New-Order, each batch in the reference's order: New-Order,
+  Payment, the two reads, Delivery, then the drain when a window is full;
 * **merge regime** — New-Order with restock, outboxes accumulated in a
   device window and drained by anti-entropy every ``merge_every`` batches;
 * **escrow regime** — strict New-Order against the hot-set shares, one
@@ -130,6 +135,40 @@ def generate_neworder_stream(engine, *, batch_per_shard: int,
     return batches
 
 
+def _home_partitioned(gen, rng, engine, per_shard: int, **kw):
+    parts = [gen(rng, engine.scale, per_shard,
+                 w_lo=s * engine.w_per_shard,
+                 w_hi=(s + 1) * engine.w_per_shard, device=engine.device,
+                 **kw)
+             for s in range(engine.n_shards)]
+    return type(parts[0])(*(torch.cat(xs) for xs in zip(*parts)))
+
+
+def generate_mix_batches(engine, *, batch_per_shard: int,
+                         n_batches: int, remote_frac: float = 0.01,
+                         read_frac: float = 0.25, seed: int = 0,
+                         item_skew: float = 0.0):
+    """The five-transaction mix's batch streams (home-partitioned, one rng,
+    the reference's draws in the reference's order): per batch a New-Order,
+    a Payment, an Order-Status and a Stock-Level batch. Returns the four
+    lists."""
+    rng = np.random.default_rng(seed)
+    per_shard_reads = max(1, int(batch_per_shard * read_frac))
+    ts0 = 0
+    no_batches, pay_batches, os_batches, sl_batches = [], [], [], []
+    for _ in range(n_batches):
+        batch, ts0 = _neworder_batch(engine, rng, batch_per_shard,
+                                     remote_frac, ts0, item_skew)
+        no_batches.append(batch)
+        pay_batches.append(_home_partitioned(
+            tpcc.generate_payment, rng, engine, batch_per_shard))
+        os_batches.append(_home_partitioned(
+            tpcc.generate_order_status, rng, engine, per_shard_reads))
+        sl_batches.append(_home_partitioned(
+            tpcc.generate_stock_level, rng, engine, per_shard_reads))
+    return no_batches, pay_batches, os_batches, sl_batches
+
+
 def _adaptive_refresh_due(aborts_since, txns_since, rate: float) -> bool:
     """Refresh iff ANY replica's escrow abort rate since the last refresh
     crossed ``rate``."""
@@ -140,9 +179,6 @@ def _adaptive_refresh_due(aborts_since, txns_since, rate: float) -> bool:
 
 _NOT_PORTED = {
     "fused": "the fused executor with CUDA graphs is ROADMAP Queue A item 5",
-    "payments": "Payment is ROADMAP Queue A item 3",
-    "deliveries": "Delivery is ROADMAP Queue A item 3",
-    "reads": "the RAMP reads are ROADMAP Queue A item 6",
     "retry_cap": "the cold-retry ring is ROADMAP Queue A item 2",
     "liveness": "liveness is ROADMAP Queue A item 9",
     "obs": "the observability plane is ROADMAP Queue A item 9",
@@ -153,28 +189,30 @@ def run_loop(engine, state: TPCCState, esc=None, *,
              batch_per_shard: int, n_batches: int,
              remote_frac: float = 0.01, merge_every: int = 8,
              refresh_every: int = 1, refresh_abort_rate: float | None = None,
-             item_skew: float = 0.0, seed: int = 0, audit: bool = False,
-             alive=None, fused: bool = False, payments: bool = False,
-             reads: bool = False, deliveries: bool = False,
-             retry_cap: int = 0, liveness=None, obs=None,
-             ) -> tuple[TPCCState, object, MixStats]:
-    """Drive the engine's plan-selected regime over a pre-generated
-    New-Order stream, batch by batch.
+             read_frac: float = 0.25, item_skew: float = 0.0, seed: int = 0,
+             payments: bool = False, reads: bool = False,
+             deliveries: bool = False, audit: bool = False, alive=None,
+             fused: bool = False, retry_cap: int = 0, liveness=None,
+             obs=None) -> tuple[TPCCState, object, MixStats]:
+    """Drive the engine's plan-selected regime over a pre-generated stream,
+    batch by batch.
 
     The state's tensors are updated in place. Batches are generated before
     the timed loop; one warm-up pass on copies (which builds the kernels on
     the card) precedes it, so ``wall_seconds`` covers all ``n_batches``.
-    ``alive`` ([n_shards] mask) threads share reclamation into every
-    refresh. ``fused``, ``payments``, ``reads``, ``deliveries``,
-    ``retry_cap``, ``liveness`` and ``obs`` belong to later slices and
-    raise ``NotImplementedError``.
+    ``payments``, ``reads`` and ``deliveries`` add Payment, the two RAMP
+    reads (``read_frac`` of the batch each) and Delivery to every batch.
+    With ``reads`` the stream is the mix's (:func:`generate_mix_batches`),
+    whose Payment batches are drawn whether or not ``payments`` is on, as in
+    the reference. ``alive`` ([n_shards] mask) threads share reclamation
+    into every refresh. ``fused``, ``retry_cap``, ``liveness`` and ``obs``
+    belong to later slices and raise ``NotImplementedError``.
 
     Returns ``(state, escrow-or-None, MixStats)``; ``stats.neworders``
     counts COMMITTED New-Orders (escrow aborts in ``stats.aborts``,
     owner-side cold rejections in ``stats.cold_rejects``).
     """
-    asked = dict(fused=fused, payments=payments, reads=reads,
-                 deliveries=deliveries, retry_cap=retry_cap > 0,
+    asked = dict(fused=fused, retry_cap=retry_cap > 0,
                  liveness=liveness is not None, obs=obs is not None)
     for knob, on in asked.items():
         if on:
@@ -183,14 +221,27 @@ def run_loop(engine, state: TPCCState, esc=None, *,
     if escrow and esc is None:
         esc = engine.init_escrow(state)
     q0 = state.s_quantity.clone() if audit else None
-    rng = np.random.default_rng(seed)
-    no_b = generate_neworder_stream(
-        engine, batch_per_shard=batch_per_shard, n_batches=n_batches,
-        remote_frac=remote_frac, rng=rng, item_skew=item_skew)
+    if reads:
+        no_b, pay_b, os_b, sl_b = generate_mix_batches(
+            engine, batch_per_shard=batch_per_shard, n_batches=n_batches,
+            remote_frac=remote_frac, read_frac=read_frac, seed=seed,
+            item_skew=item_skew)
+        if not payments:
+            pay_b = None
+    else:
+        rng = np.random.default_rng(seed)
+        no_b = generate_neworder_stream(
+            engine, batch_per_shard=batch_per_shard, n_batches=n_batches,
+            remote_frac=remote_frac, rng=rng, item_skew=item_skew)
+        pay_b = [_home_partitioned(tpcc.generate_payment, rng, engine,
+                                   batch_per_shard)
+                 for _ in range(n_batches)] if payments else None
+        os_b = sl_b = None
     state, esc, stats = _dispatch_loop(
-        engine, state, esc, no_b, batch_per_shard=batch_per_shard,
-        merge_every=merge_every, refresh_every=refresh_every,
-        refresh_abort_rate=refresh_abort_rate, escrow=escrow, alive=alive)
+        engine, state, esc, no_b, pay_b, os_b, sl_b,
+        batch_per_shard=batch_per_shard, merge_every=merge_every,
+        refresh_every=refresh_every, refresh_abort_rate=refresh_abort_rate,
+        deliveries=deliveries, escrow=escrow, alive=alive)
     if audit:
         from .audit import assert_audit
         if escrow:
@@ -207,12 +258,16 @@ def _drain(engine, state, window: _OutboxWindow, escrow: bool):
     return engine.anti_entropy(state, window.flat()), None
 
 
-def _dispatch_loop(engine, state, esc, no_b, *, batch_per_shard,
-                   merge_every, refresh_every, refresh_abort_rate, escrow,
-                   alive):
-    """The per-batch dispatch path: one engine call per step."""
+def _dispatch_loop(engine, state, esc, no_b, pay_b, os_b, sl_b, *,
+                   batch_per_shard, merge_every, refresh_every,
+                   refresh_abort_rate, deliveries, escrow, alive):
+    """The per-batch dispatch path: one engine call per transaction type
+    per batch."""
     n_batches = len(no_b)
     B = batch_per_shard * engine.n_shards
+    reads = os_b is not None
+    R = (max(1, os_b[0].w.shape[0] // engine.n_shards) * engine.n_shards
+         if reads else 0)
     rows = min(merge_every, n_batches)
     dev = engine.device
 
@@ -225,6 +280,13 @@ def _dispatch_loop(engine, state, esc, no_b, *, batch_per_shard,
                                                                no_b[0])
     else:
         warm, outbox, _ = engine.neworder_step(warm, no_b[0])
+    if pay_b is not None:
+        warm = engine.payment_step(warm, pay_b[0])
+    if reads:
+        engine.order_status_step(warm, os_b[0])
+        engine.stock_level_step(warm, sl_b[0])
+    if deliveries:
+        warm, _ = engine.delivery_step(warm)
     window = _OutboxWindow(outbox, rows)
     window.put(outbox)
     warm, _ = _drain(engine, warm, window, escrow)
@@ -236,7 +298,9 @@ def _dispatch_loop(engine, state, esc, no_b, *, batch_per_shard,
 
     stats = MixStats()
     zero = torch.zeros((), dtype=torch.int32, device=dev)
+    # on-device stat accumulators: the host reads them once, at the end
     commit_acc, rej_acc = zero, zero
+    found_acc, fract_acc, rep_acc, del_acc = zero, zero, zero, zero
     adaptive = escrow and refresh_abort_rate is not None
     pr_commit = torch.zeros((engine.n_shards,), dtype=torch.int32,
                             device=dev) if adaptive else None
@@ -256,6 +320,21 @@ def _dispatch_loop(engine, state, esc, no_b, *, batch_per_shard,
             state, outbox, _ = engine.neworder_step(state, no_b[i])
             stats.neworders += B
         window.put(outbox)
+        if pay_b is not None:
+            state = engine.payment_step(state, pay_b[i])
+            stats.payments += B
+        if reads:
+            os_res = engine.order_status_step(state, os_b[i])
+            sl_res = engine.stock_level_step(state, sl_b[i])
+            stats.order_statuses += R
+            stats.stock_levels += R
+            found_acc = found_acc + os_res.found.sum()
+            fract_acc = (fract_acc + os_res.fractures_observed()
+                         + (sl_res.fractured - sl_res.repaired).sum())
+            rep_acc = rep_acc + os_res.repaired.sum() + sl_res.repaired.sum()
+        if deliveries:
+            state, delivered = engine.delivery_step(state)
+            del_acc = del_acc + delivered.sum()
         if len(window) == merge_every or i == n_batches - 1:
             # one batched drain of the whole window (Definition 3:
             # convergence may lag the hot path, but must happen)
@@ -288,4 +367,8 @@ def _dispatch_loop(engine, state, esc, no_b, *, batch_per_shard,
         stats.neworders = int(commit_acc)
         stats.aborts = B * n_batches - stats.neworders
         stats.cold_rejects = int(rej_acc)
+    stats.reads_found = int(found_acc)
+    stats.fractures_observed = int(fract_acc)
+    stats.lines_repaired = int(rep_acc)
+    stats.deliveries = int(del_acc)
     return state, esc, stats

@@ -8,7 +8,10 @@ The port of ``repro.txn.engine`` for one device (``n_shards == 1``):
 * **anti-entropy** — :meth:`Engine.anti_entropy` / :meth:`Engine.drain_strict`
   apply the outbox entries each owner holds;
 * **escrow refresh** — :meth:`Engine.refresh_escrow`, the regime's amortized
-  coordination point, re-partitions the hot cells' stock into shares.
+  coordination point, re-partitions the hot cells' stock into shares;
+* **the rest of the mix** — :meth:`Engine.payment_step`,
+  :meth:`Engine.delivery_step` and the RAMP reads
+  :meth:`Engine.order_status_step` and :meth:`Engine.stock_level_step`.
 
 With one shard the reference's all-gather and ``psum`` are the identity;
 the bodies below are written so and refuse ``n_shards > 1``.
@@ -25,9 +28,9 @@ from repro_torch.core.lattice import HotSetEscrow
 from repro_torch.core.planner import CoordClass, plan as plan_specs
 from repro_torch.device import resolve_device
 
-from . import tpcc
-from .tpcc import (NewOrderBatch, StockDelta, TPCCScale, TPCCState,
-                   tpcc_state_specs)
+from . import ramp, tpcc
+from .tpcc import (NewOrderBatch, OrderStatusBatch, PaymentBatch, StockDelta,
+                   StockLevelBatch, TPCCScale, TPCCState, tpcc_state_specs)
 
 
 def _one_shard(n_shards: int) -> None:
@@ -124,6 +127,29 @@ class Engine:
         merge regime)."""
         return gather_and_apply_outbox(state, outbox, 0, self.w_per_shard,
                                        self.n_shards, restock=self._restock)
+
+    # -- the rest of the five-transaction mix ---------------------------------
+
+    def payment_step(self, state: TPCCState, batch: PaymentBatch
+                     ) -> TPCCState:
+        return tpcc.apply_payment(state, batch, w_lo=0)
+
+    def delivery_step(self, state: TPCCState
+                      ) -> tuple[TPCCState, torch.Tensor]:
+        """Deliver one order in every district that has one (carrier 1).
+        Returns (state, per-shard delivered-order counts [n_shards] int32)."""
+        n = state.no_valid.any(2).sum().to(torch.int32).reshape(1)
+        return tpcc.apply_delivery(state, 1, 0), n
+
+    def order_status_step(self, state: TPCCState, batch: OrderStatusBatch
+                          ) -> ramp.OrderStatusResult:
+        """RAMP read path: atomic visibility, through the fused read."""
+        return ramp.apply_order_status(state, batch, w_lo=0)
+
+    def stock_level_step(self, state: TPCCState, batch: StockLevelBatch
+                         ) -> ramp.StockLevelResult:
+        """RAMP read path: atomic visibility."""
+        return ramp.apply_stock_level(state, batch, self.scale, w_lo=0)
 
     # -- escrow regime (plan-selected; paper §8) ------------------------------
 

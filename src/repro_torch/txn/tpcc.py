@@ -1,11 +1,14 @@
-"""TPC-C New-Order in PyTorch — schema, the New-Order stream, the merge and
-escrow regimes' effects, and the twelve consistency criteria (paper §6.2).
+"""TPC-C in PyTorch — schema, the transaction streams, New-Order in the
+merge and escrow regimes, Payment and Delivery, and the twelve consistency
+criteria (paper §6.2).
 
-The port of ``repro.txn.tpcc`` for the New-Order slice. State is dense and
-warehouse-major, with the reference's field names, layouts and dtypes
-(int32, bool, float32; int64 only where torch indexes). The numpy draws of
-:func:`init_state` and :func:`generate_neworder` are the reference's, so the
-same seed gives both packages the same inputs.
+The port of ``repro.txn.tpcc``. State is dense and warehouse-major, with
+the reference's field names, layouts and dtypes (int32, bool, float32;
+int64 only where torch indexes). The numpy draws of :func:`init_state`
+and the ``generate_*`` functions are the reference's, so the same seed
+gives both packages the same inputs. Float sums follow the reference's
+order: over an order's lines in line order (``kernels.ref.sum_lines``),
+and Payment's scatter-adds in batch order.
 
 Unlike the reference's pure functions, the ``apply_*`` functions here
 update the state's tensors IN PLACE (the reference donates the same
@@ -160,6 +163,35 @@ class NewOrderBatch(NamedTuple):
     ts: Tensor         # [B] logical entry timestamp
 
 
+class PaymentBatch(NamedTuple):
+    w: Tensor       # [B]
+    d: Tensor       # [B]
+    c: Tensor       # [B]
+    amount: Tensor  # [B]
+
+
+class OrderStatusBatch(NamedTuple):
+    """Order-Status (TPC-C §2.6): customer's most recent order + its lines."""
+
+    w: Tensor  # [B]
+    d: Tensor  # [B]
+    c: Tensor  # [B]
+
+
+class StockLevelBatch(NamedTuple):
+    """Stock-Level (TPC-C §2.8): distinct recently-ordered items whose home
+    stock sits below a threshold."""
+
+    w: Tensor          # [B]
+    d: Tensor          # [B]
+    threshold: Tensor  # [B] int32 (spec: 10..20)
+
+
+def _on(dev, *arrays):
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for a in arrays)
+
+
 def generate_neworder(rng: np.random.Generator, scale: TPCCScale, batch: int,
                       remote_frac: float = 0.01,
                       w_lo: int = 0, w_hi: int | None = None,
@@ -186,8 +218,44 @@ def generate_neworder(rng: np.random.Generator, scale: TPCCScale, batch: int,
     c = rng.integers(0, scale.customers, batch).astype(np.int32)
     qty = rng.integers(1, 11, (batch, L)).astype(np.int32)
     ts = (ts0 + np.arange(batch)).astype(np.int32)
-    return NewOrderBatch(*(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                           for a in (w, d, c, n_lines, i_id, supply, qty, ts)))
+    return NewOrderBatch(*_on(dev, w, d, c, n_lines, i_id, supply, qty, ts))
+
+
+def generate_payment(rng: np.random.Generator, scale: TPCCScale, batch: int,
+                     w_lo: int = 0, w_hi: int | None = None,
+                     device=None) -> PaymentBatch:
+    """Random Payment inputs, the reference's numpy stream draw for draw."""
+    dev = resolve_device(device)
+    w_hi = scale.n_warehouses if w_hi is None else w_hi
+    w = rng.integers(w_lo, w_hi, batch).astype(np.int32)
+    d = rng.integers(0, scale.districts, batch).astype(np.int32)
+    c = rng.integers(0, scale.customers, batch).astype(np.int32)
+    amount = rng.uniform(1.0, 5000.0, batch).astype(np.float32)
+    return PaymentBatch(*_on(dev, w, d, c, amount))
+
+
+def generate_order_status(rng: np.random.Generator, scale: TPCCScale,
+                          batch: int, w_lo: int = 0, w_hi: int | None = None,
+                          device=None) -> OrderStatusBatch:
+    """Random Order-Status inputs, the reference's numpy stream."""
+    dev = resolve_device(device)
+    w_hi = scale.n_warehouses if w_hi is None else w_hi
+    w = rng.integers(w_lo, w_hi, batch).astype(np.int32)
+    d = rng.integers(0, scale.districts, batch).astype(np.int32)
+    c = rng.integers(0, scale.customers, batch).astype(np.int32)
+    return OrderStatusBatch(*_on(dev, w, d, c))
+
+
+def generate_stock_level(rng: np.random.Generator, scale: TPCCScale,
+                         batch: int, w_lo: int = 0, w_hi: int | None = None,
+                         device=None) -> StockLevelBatch:
+    """Random Stock-Level inputs, the reference's numpy stream."""
+    dev = resolve_device(device)
+    w_hi = scale.n_warehouses if w_hi is None else w_hi
+    w = rng.integers(w_lo, w_hi, batch).astype(np.int32)
+    d = rng.integers(0, scale.districts, batch).astype(np.int32)
+    threshold = rng.integers(10, 21, batch).astype(np.int32)
+    return StockLevelBatch(*_on(dev, w, d, threshold))
 
 
 # ---------------------------------------------------------------------------
@@ -332,7 +400,7 @@ def _totals(state: TPCCState, batch: NewOrderBatch, wl: Tensor,
     wl, d = wl.long(), batch.d.long()
     disc = state.c_discount[wl, d, batch.c.long()]
     tax = state.w_tax[wl] + state.d_tax[wl, d]
-    return amount.sum(1) * (1.0 - disc) * (1.0 + tax)
+    return ref.sum_lines(amount) * (1.0 - disc) * (1.0 + tax)
 
 
 def apply_neworder(state: TPCCState, batch: NewOrderBatch,
@@ -727,6 +795,98 @@ def apply_stock_updates_strict_tiered(state: TPCCState, hot_keys: Tensor,
                                 (mask & is_hot) | admit_cold, remote,
                                 restock=False)
     return state, rejects
+
+
+# ---------------------------------------------------------------------------
+# Payment & Delivery ("largely uninteresting" per §6.2 — but implemented)
+# ---------------------------------------------------------------------------
+
+
+def _add_in_batch_order(tables: tuple[Tensor, ...], idx: tuple[Tensor, ...],
+                        vals: tuple[Tensor, ...]) -> None:
+    """``table[idx[b]] += val[b]`` for each table, in batch order: the adds
+    that land on one cell land one after another, ``((v + a0) + a1) + ..``,
+    which is how XLA's scatter-add runs on the CPU. Float adds do not
+    associate, and torch's ``index_put_(accumulate=True)`` sums duplicate
+    indices otherwise on the card, so the order is made explicit.
+
+    Each add's running value chains from the previous add to the same cell
+    (one round per duplicate depth, the depth read once on the host); then
+    every add writes its cell's final value, so duplicates write the same
+    value and the scatter cannot race."""
+    shape = tables[0].shape
+    flat = torch.zeros_like(idx[0], dtype=torch.long)
+    for i, n in zip(idx, shape):
+        flat = flat * n + i.long()
+    B = flat.shape[0]
+    pos = torch.arange(B, device=flat.device)
+    same = flat[None, :] == flat[:, None]
+    before = same & (pos[None, :] < pos[:, None])
+    prev = torch.where(before, pos[None, :], 0).amax(1)   # 0 when first
+    last = torch.where(same, pos[None, :], 0).amax(1)
+    depth = before.sum(1)
+    rounds = int(depth.max()) if B else 0
+    for table, val in zip(tables, vals):
+        view = table.view(-1)
+        run = view[flat] + val
+        for r in range(1, rounds + 1):
+            run = torch.where(depth == r, run[prev] + val, run)
+        view.index_put_((flat,), run[last])
+
+
+def apply_payment(state: TPCCState, batch: PaymentBatch,
+                  w_lo: int = 0) -> TPCCState:
+    """Payment: commutative counter increments (I-confluent, Table 2), each
+    landing in batch order (:func:`_add_in_batch_order`)."""
+    w, d, c = batch.w - w_lo, batch.d, batch.c
+    amt = batch.amount
+    _add_in_batch_order((state.w_ytd,), (w,), (amt,))
+    _add_in_batch_order((state.d_ytd, state.h_amount_sum), (w, d),
+                        (amt, amt))
+    _add_in_batch_order((state.c_balance, state.c_ytd_payment), (w, d, c),
+                        (-amt, amt))
+    state.c_payment_cnt.index_put_((w.long(), d.long(), c.long()),
+                                   torch.ones_like(c), accumulate=True)
+    return state
+
+
+def apply_delivery(state: TPCCState, carrier_id, ts) -> TPCCState:
+    """Deliver the oldest undelivered order in every district (single-
+    partition, as the spec permits and the paper notes). ``ts`` is unused,
+    as in the reference.
+
+    The credited amount is read through the RAMP prepared layer
+    (``ol_valid`` and a matching stamp), never the possibly lagging visible
+    layer, so it covers the complete write set, and is summed in line
+    order. Every ``(w, d)`` names one slot and one customer, so the
+    writes below have no duplicate index."""
+    W, D, OC = state.no_valid.shape
+    dev = state.no_valid.device
+    key = torch.where(state.no_valid, state.o_entry_d,
+                      torch.iinfo(torch.int32).max)
+    slot = key.argmin(2)                                  # [W, D]
+    has = state.no_valid.any(2)                           # [W, D]
+    wI = torch.arange(W, device=dev)[:, None].expand(W, D)
+    dI = torch.arange(D, device=dev)[None, :].expand(W, D)
+    at = (wI, dI, slot)
+
+    cust = state.o_c_id[at].long()
+    line_ok = state.ol_valid[at] & (state.ol_ts[at] == state.o_ts[at][..., None])
+    lines_amt = torch.where(line_ok, state.ol_amount[at], 0.0)
+    amt = ref.sum_lines(lines_amt) * has
+
+    state.no_valid.index_put_(at, torch.where(has, False, state.no_valid[at]))
+    state.o_carrier.index_put_(at, torch.where(
+        has, torch.as_tensor(carrier_id, dtype=torch.int32, device=dev),
+        state.o_carrier[at]))
+    state.ol_delivered.index_put_(at, torch.where(
+        has[..., None], state.ol_valid[at], state.ol_delivered[at]))
+    cat = (wI, dI, cust)
+    state.c_balance.index_put_(cat, state.c_balance[cat] + amt)
+    state.c_delivered_sum.index_put_(cat, state.c_delivered_sum[cat] + amt)
+    state.c_delivery_cnt.index_put_(cat, state.c_delivery_cnt[cat]
+                                    + has.to(torch.int32))
+    return state
 
 
 # ---------------------------------------------------------------------------

@@ -4,9 +4,11 @@ on the GPU machine with
 
     python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 
-Tolerance: exact. Every output is an integer, a bool, or a float32
-product of two exact operands (``price x qty``), so kernel and plain
-version agree bit for bit.
+Tolerance: exact. Every output is an integer, a bool, a selection, a
+float32 product of two exact operands (``price x qty``), or a float32 row
+sum that kernel and plain version both take in line order, so they agree
+bit for bit. Payment's float scatter-adds land in batch order on the card
+as on the CPU, so its state agrees bit for bit too.
 """
 
 import numpy as np
@@ -17,8 +19,11 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels.escrow_admit import (  # noqa: E402
     contention_gate, escrow_admit_cuda, residual_fcfs, residual_order)
+from repro_torch.kernels.ramp_read import (  # noqa: E402
+    ramp_read_cuda, ramp_read_plain)
 from repro_torch.kernels.txn_megastep import (  # noqa: E402
     MegastepOut, txn_megastep_cuda, txn_megastep_plain)
+from repro_torch.txn import tpcc  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -108,3 +113,75 @@ def test_txn_megastep_kernel_matches_plain(cuda, case):
     _equal(got, plain, "kernel vs plain")
     _equal(ops.txn_megastep(avail0.clone(), *args[1:], **kw),
            MegastepOut(*ref.txn_megastep_ref(*args, **kw)), "ops vs oracle")
+
+
+def _read_problem(seed, R, L, device, hide=0.5):
+    """A seeded fused-read problem: half the rows' stamps match their
+    commit record, ``hide`` of the lines are invisible (so the lookback
+    repairs), and nlines runs over 0..L."""
+    rng = np.random.default_rng(seed)
+    req = rng.integers(-1, 1 << 20, R).astype(np.int32)
+    ts = rng.integers(-1, 1 << 20, (R, L)).astype(np.int32)
+    match_rows = rng.random(R) < 0.5
+    ts[match_rows] = req[match_rows, None]
+    nl = rng.integers(0, L + 1, R).astype(np.int32)
+    nl[0], nl[-1] = 0, L
+    prep = rng.random((R, L)) < 0.9
+    vis = prep & (rng.random((R, L)) >= hide)
+    arrays = (req, nl, ts, vis, prep,
+              rng.uniform(0, 1e4, (R, L)).astype(np.float32),
+              rng.integers(0, 100_000, (R, L)).astype(np.int32))
+    return tuple(torch.from_numpy(a).to(device) for a in arrays)
+
+
+@pytest.mark.parametrize("R,L", [(1, 15), (64, 15), (100, 15), (4097, 15),
+                                 (300, 32), (77, 5)])
+def test_ramp_read_kernel_matches_plain(cuda, R, L):
+    """Row counts a 64-row block does not divide, nlines of 0 and L, and
+    concealed lines that the lookback repairs."""
+    args = _read_problem(R * 31 + L, R, L, cuda)
+    before = ramp_read_cuda.launches
+    got = ramp_read_cuda(*args)
+    torch.cuda.synchronize()
+    assert ramp_read_cuda.launches == before + 1
+    want = ramp_read_plain(*args)
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        assert torch.equal(x, y)
+    for x, y in zip(ops.ramp_read_select(*args), ref.ramp_read_ref(*args)):
+        assert torch.equal(x, y)
+    if R >= 64:
+        assert int(got[5].sum()) > 0      # the repair branch ran
+
+
+def test_payment_on_the_card_matches_the_cpu(cuda):
+    """Duplicate-heavy Payments (256 a batch into 2 x 2 x 8 customers) on
+    the card equal the same Payments on the CPU bit for bit, and two runs
+    on the card agree. Also prints whether torch's own ``index_put_``
+    accumulate would have agreed (it need not: that is why Payment orders
+    its adds itself)."""
+    scale = tpcc.TPCCScale(n_warehouses=2, districts=2, customers=8,
+                           n_items=64, order_capacity=32)
+    rng = np.random.default_rng(21)
+    batches = [tpcc.generate_payment(rng, scale, 256, device="cpu")
+               for _ in range(4)]
+    runs = []
+    for dev in ("cpu", cuda, cuda):
+        state = tpcc.init_state(scale, seed=2, device=dev)
+        for b in batches:
+            state = tpcc.apply_payment(state, type(b)(*(x.to(dev)
+                                                        for x in b)))
+        runs.append(tpcc.TPCCState(*(x.cpu() for x in state)))
+    for name, a, b, c in zip(tpcc.TPCCState._fields, *runs):
+        assert torch.equal(a, b), f"card != cpu: {name}"
+        assert torch.equal(b, c), f"card run 1 != run 2: {name}"
+    naive = {}
+    for dev in ("cpu", cuda):
+        w_ytd = torch.zeros(2, device=dev)
+        for b in batches:
+            w_ytd.index_put_((b.w.to(dev).long(),), b.amount.to(dev),
+                             accumulate=True)
+        naive[str(dev)] = w_ytd.cpu()
+    print(f"index_put_ accumulate, card == cpu: "
+          f"{torch.equal(naive['cpu'], naive['cuda'])}; batch order: "
+          f"{torch.equal(naive['cpu'], runs[0].w_ytd)}")

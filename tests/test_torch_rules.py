@@ -60,7 +60,8 @@ def test_importing_port_loads_no_jax():
 
 
 def test_kernel_modules_have_no_fallback():
-    for name in ("ops.py", "escrow_admit.py", "txn_megastep.py"):
+    for name in ("ops.py", "escrow_admit.py", "txn_megastep.py",
+                 "ramp_read.py"):
         tree = ast.parse((PORT / "kernels" / name).read_text())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), name
 
@@ -89,8 +90,8 @@ def test_unported_paths_raise_not_implemented():
         single_host_engine(scale, stock_invariant="serial", device="cpu")
     from repro_torch.txn.drivers import run_loop
     eng = single_host_engine(scale, device="cpu")
-    for kw in (dict(fused=True), dict(payments=True), dict(reads=True),
-               dict(deliveries=True), dict(retry_cap=4)):
+    for kw in (dict(fused=True), dict(retry_cap=4), dict(liveness=object()),
+               dict(obs=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             run_loop(eng, tpcc.init_state(scale, device="cpu"),
                      batch_per_shard=2, n_batches=1, **kw)

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's TPC-C main paths on one CUDA card: New-Order
-alone, and the five-transaction mix.
+"""Drive the PyTorch port's main paths on one CUDA card: TPC-C New-Order
+alone, the five-transaction mix, and the anti-entropy merge of divergent
+replica snapshots.
 
     python3 chip_smoke.py
 
 From the root of a checkout, on a machine with an NVIDIA H100. It builds the
-three CUDA kernels of the port from ``src/repro_torch/kernels/csrc`` (one
+four CUDA kernels of the port from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, started together, into ``build/kernels/``), then:
 
   1. prints the card and its power limit, and the build time;
@@ -31,7 +32,17 @@ three CUDA kernels of the port from ``src/repro_torch/kernels/csrc`` (one
      and both timed: (a) the main path's Order-Status problem on phase 7's
      final state, as it is and with half the lines concealed (so the
      lookback repairs), and (b) the whole order table as one problem of
-     W * D * OC rows, a bandwidth problem.
+     W * D * OC rows, a bandwidth problem;
+ 10. replica anti-entropy: phase 7's stock table as a ``VersionedSlots``
+     (W * 100,000 rows of s_quantity, s_ytd, s_order_cnt, s_remote_cnt in
+     float32, int64 stamps), four replicas that each upsert a seeded 5% of
+     the rows (replica 2 also plants s_quantity = -1 in a seeded set at the
+     highest stamp), then ``merge_many`` and ``converged`` over the four
+     and the audited ``merge_versioned_fused`` of replicas 0 and 2, all
+     through the lattice_merge kernel; held bit-equal to the plain version
+     on the card and the plain path on the CPU, the audit mask equal to the
+     planted rows; then the kernel against its plain version on edge
+     problems, and both timed on one pairwise merge at full size.
 
 The deployment is TPC-C at the specification's per-warehouse cardinalities
 (TPC-C standard specification, clause 4.3.3.1: 10 districts, 3000 customers
@@ -42,8 +53,8 @@ batches, an anti-entropy drain every 8 batches and an escrow refresh at
 every drain; the mix adds per batch 256 Payments, 64 Order-Status and 64
 Stock-Level queries (``read_frac`` 0.25) and one Delivery per district.
 
-Launch counters are set to 0 just before each main path (phases 3-4, 7
-and 8) and read just after. The second-to-last line of output is the
+Launch counters are set to 0 just before each main path (phases 3-4, 7,
+8 and 10) and read just after. The second-to-last line of output is the
 kernels' JSON record; the last line is the device record. Any failure exits
 non-zero; so does a machine without a CUDA device.
 """
@@ -347,6 +358,203 @@ def ramp_read_problems(eng, state):
     return rows
 
 
+REPLICAS = 4             # divergent replica snapshots merged after a partition
+UPSERT_FRAC = 0.05       # rows each replica rewrote while partitioned
+PLANTED = 1000           # rows replica 2 drives below the floor
+STOCK_COLUMNS = ("s_quantity", "s_ytd", "s_order_cnt", "s_remote_cnt")
+
+
+def stock_slots(state):
+    """The stock table of ``state`` as one ``VersionedSlots``: a row per
+    (warehouse, item), the four stock columns as float32 (exact: every value
+    is an integer below 2**24), every row valid at stamp
+    ``namespaced_version(0, 0, REPLICAS)``."""
+    import torch
+
+    from repro_torch.core.lattice import VersionedSlots
+    from repro_torch.txn.store import namespaced_version
+
+    payload = torch.stack([getattr(state, c).reshape(-1).float()
+                           for c in STOCK_COLUMNS], 1).contiguous()
+    R = payload.shape[0]
+    stamp = int(namespaced_version(0, 0, REPLICAS))
+    return VersionedSlots(
+        torch.ones(R, dtype=torch.bool, device=payload.device),
+        torch.full((R,), stamp, dtype=torch.int64, device=payload.device),
+        payload)
+
+
+def diverge(base, seed):
+    """``REPLICAS`` copies of ``base``; replica r rewrites a seeded
+    ``UPSERT_FRAC`` of the rows as one New-Order line each (TPC-C clause
+    2.4.2.2: quantity 1-10, restock by 91 below 10, s_ytd += quantity, one
+    more order, 1% remote) at stamps ``namespaced_version(k, r, REPLICAS)``
+    with k drawn from 1-8 per row, so overlapping rows are settled by the
+    stamps. Replica 2 then plants s_quantity = -1 into ``PLANTED`` seeded
+    rows at the highest stamp (k = 9). Returns (replicas, planted mask)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.lattice import VersionedSlots
+    from repro_torch.txn.store import namespaced_version
+
+    rng = np.random.default_rng(seed)
+    R = base.valid.shape[0]
+    dev = base.payload.device
+    reps = []
+    for r in range(REPLICAS):
+        idx = torch.from_numpy(rng.choice(R, int(R * UPSERT_FRAC),
+                                          replace=False)).to(dev)
+        n = idx.numel()
+        k = torch.from_numpy(rng.integers(1, 9, n))
+        qty = torch.from_numpy(rng.integers(1, 11, n)).to(dev, torch.float32)
+        remote = torch.from_numpy(rng.random(n) < REMOTE_FRAC).to(dev)
+        old = base.payload[idx]
+        left = old[:, 0] - qty
+        new = torch.stack([torch.where(left >= 10, left, left + 91),
+                           old[:, 1] + qty, old[:, 2] + 1,
+                           old[:, 3] + remote.float()], 1)
+        rep = VersionedSlots(*(x.clone() for x in base))
+        rep.version[idx] = namespaced_version(k, r, REPLICAS).to(dev)
+        rep.payload[idx] = new
+        reps.append(rep)
+    idx = torch.from_numpy(rng.choice(R, PLANTED, replace=False)).to(dev)
+    reps[2].payload[idx, 0] = -1.0
+    reps[2].version[idx] = int(namespaced_version(9, 2, REPLICAS))
+    planted = torch.zeros(R, dtype=torch.bool, device=dev)
+    planted[idx] = True
+    return reps, planted
+
+
+def merge_edge_problems(device):
+    """Small B4 problems that the full-size one does not exercise: one row;
+    257 rows (a 256-thread block does not divide them); one column (the
+    element path); a bfloat16 payload of 0.1 against ``hi=0.1``; int32
+    stamps; stamps above 2**31 with ties. Returns [(tag, args, lo, hi)]."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED)
+
+    def problem(R, W, pay=torch.float32, ver=torch.int64, base=-1):
+        out = []
+        for _ in range(2):
+            p = rng.normal(0, 1, (R, W)).astype(np.float32)
+            p[rng.random((R, W)) < 0.25] = 0.1
+            out += [torch.from_numpy(rng.random(R) < 0.7),
+                    torch.from_numpy(rng.integers(base, base + 40, R)).to(ver),
+                    torch.from_numpy(p).to(pay)]
+        out[4][: R // 3] = out[1][: R // 3]          # tied stamps: a wins
+        return tuple(x.to(device) for x in out)
+
+    return [("R=1", problem(1, 4), -1.0, 1.0),
+            ("R=257", problem(257, 4), -1.0, 1.0),
+            ("W=1", problem(4096, 1), -1.0, 1.0),
+            ("bf16, hi=0.1", problem(1000, 8, pay=torch.bfloat16), -1.0,
+             0.1),
+            ("int32 stamps", problem(1000, 4, ver=torch.int32), -1.0, 1.0),
+            ("stamps above 2**31", problem(1000, 4, base=2**31 - 20), -1.0,
+             1.0)]
+
+
+def lattice_merge_bytes(args, out) -> tuple[int, int]:
+    """The bytes one merge must move: both valid masks and both stamps,
+    the winning side's payload row (the losing row decides nothing), and
+    every output once. Returns (those bytes, the bytes of every input and
+    output once)."""
+    a_valid, a_ver, a_pay, b_valid, b_ver, b_pay = args
+    return (_nbytes(a_valid, a_ver, b_valid, b_ver, a_pay) + _nbytes(*out),
+            _nbytes(*args, *out))
+
+
+def anti_entropy(state):
+    """Phase 10 on phase 7's final ``state``; returns the kernel's row."""
+    import torch
+
+    from repro_torch.core.lattice import VersionedSlots
+    from repro_torch.core.merge import (converged, merge_many,
+                                        merge_versioned_fused)
+    from repro_torch.kernels.lattice_merge import (lattice_merge_cuda,
+                                                   lattice_merge_plain)
+
+    base = stock_slots(state)
+    reps, planted = diverge(base, SEED)
+    R, W = base.payload.shape
+    print(f"anti-entropy: {REPLICAS} replicas of {R:,} rows x {W} float32 "
+          f"columns, {_nbytes(*base) / 1e6:.1f} MB a replica, "
+          f"{int(UPSERT_FRAC * R):,} rows rewritten by each, {PLANTED} "
+          f"planted")
+    names = ("versioned",)
+    trees = [{"stock": s} for s in reps]
+
+    # the main path: launch counts from 0
+    lattice_merge_cuda.launches = 0
+    t0 = time.perf_counter()
+    merged = merge_many(names, trees)["stock"]
+    agree = converged(names, trees)
+    audited, viol = merge_versioned_fused(reps[0], reps[2], lo=0.0,
+                                          hi=2.0**24)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = lattice_merge_cuda.launches
+
+    def plain(a, b, lo=float("-inf"), hi=float("inf")):
+        return lattice_merge_plain(*a, *b, lo, hi)
+
+    p01 = VersionedSlots(*plain(reps[0], reps[1])[:3])
+    p23 = VersionedSlots(*plain(reps[2], reps[3])[:3])
+    on_card = VersionedSlots(*plain(p01, p23)[:3])
+    on_cpu = merge_many(names, [{"stock": VersionedSlots(
+        *(x.cpu() for x in s))} for s in reps])["stock"]
+    want_audit = plain(reps[0], reps[2], 0.0, 2.0**24)
+    bad = [f for f, x, y, z in zip(VersionedSlots._fields, merged, on_card,
+                                   on_cpu)
+           if not (torch.equal(x, y) and torch.equal(x.cpu(), z))]
+    bad += [f"audit {i}" for i, (x, y) in enumerate(zip(
+        (*audited, viol), want_audit)) if not torch.equal(x, y)]
+    won = int((merged.version > base.version).sum())
+    print(f"anti-entropy: merge_many + converged + audited merge in "
+          f"{wall:.3f} s, lattice_merge launches={launches}; {won:,} rows "
+          f"took a replica's write; converged={agree}; audit flagged "
+          f"{int(viol.sum())} rows (planted {PLANTED}); kernel == plain "
+          f"on the card == plain on the CPU: {not bad}")
+    if bad or not agree or launches < 3:
+        raise AssertionError(f"anti-entropy failed: differs {bad}, "
+                             f"converged={agree}, launches={launches}")
+    if not torch.equal(viol, planted):
+        raise AssertionError("the audit mask is not the planted rows")
+    if int(merged.payload[:, 0].min()) != -1 or won <= 0:
+        raise AssertionError("the merge lost the replicas' writes")
+
+    # B4 against its plain version on the edge problems, bit for bit
+    err = 0.0
+    for tag, args, lo, hi in merge_edge_problems(base.payload.device):
+        got = lattice_merge_cuda(*args, lo, hi)
+        want = lattice_merge_plain(*args, lo, hi)
+        e = _max_abs_err(got, want)
+        same = all(torch.equal(x, y) for x, y in zip(got, want))
+        print(f"parity [lattice_merge, {tag}] rows={args[0].numel()} "
+              f"flagged={int(got[3].sum())} max_abs_err={e} equal={same}")
+        if e or not same:
+            raise AssertionError(f"lattice_merge disagrees with plain: {tag}")
+        err = max(err, e)
+
+    # one pairwise merge at full size, timed
+    args = (*reps[0], *reps[2])
+    got = lattice_merge_cuda(*args, 0.0, 2.0**24)
+    err = max(err, _max_abs_err(got, want_audit))
+    need, every = lattice_merge_bytes(args, got)
+    row = dict(max_abs_err=err, rows=R, bytes=need, bytes_both_payloads=every,
+               launches=launches,
+               ms=_time_ms(lambda: lattice_merge_cuda(*args, 0.0, 2.0**24),
+                           50),
+               plain_ms=_time_ms(lambda: lattice_merge_plain(
+                   *args, 0.0, 2.0**24), 5))
+    row["bound_ms"] = need / HBM_BYTES_PER_S * 1e3
+    print(f"timing [lattice_merge, pairwise at full size] {json.dumps(row)}")
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -517,14 +725,19 @@ def main() -> int:
 
     # -- phase 9: the ramp_read kernel on problems (a) and (b) ---------------
     read_a, read_a_hidden, read_b = ramp_read_problems(merge, state)
-    del state
     timing["ramp_read"] = dict(read_a, max_abs_err=max(
         r["max_abs_err"] for r in (read_a, read_a_hidden, read_b)))
 
-    parity_err["ramp_read"] = 0.0
+    # -- phase 10: replica anti-entropy, launch counts from 0 ----------------
+    timing["lattice_merge"] = anti_entropy(state)
+    launches["lattice_merge"] = timing["lattice_merge"]["launches"]
+    del state
+
+    parity_err["ramp_read"] = parity_err["lattice_merge"] = 0.0
     replaces = {"escrow_admit": "src/repro/kernels/escrow_admit.py:184",
                 "txn_megastep": "src/repro/kernels/txn_megastep.py:255",
-                "ramp_read": "src/repro/kernels/ramp_read.py:73"}
+                "ramp_read": "src/repro/kernels/ramp_read.py:73",
+                "lattice_merge": "src/repro/kernels/lattice_merge.py:64"}
     record = {"kernels": [
         {"name": k, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{k}.cu",

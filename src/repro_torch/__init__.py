@@ -1,14 +1,17 @@
 """repro_torch — the PyTorch/CUDA port of ``repro`` for one NVIDIA H100.
 
 The JAX package ``repro`` is the reference; this package imports nothing
-from it. The New-Order slice: the analysis core (core/), TPC-C New-Order in
-the merge and sparse-escrow regimes with its closed loop and audit (txn/),
-and hand-written CUDA kernels for escrow admission and the transaction
-megastep, each beside its plain torch version (kernels/). Entry points run
-on the CUDA card unless the caller passes ``device="cpu"``.
+from it. It holds the analysis core with the lattices, the Theorem 1
+witnesses and the anti-entropy merges of state trees (core/); TPC-C's
+five-transaction mix in the merge and sparse-escrow regimes with its
+closed loop, RAMP reads, audit and the versioned store (txn/); and four
+hand-written CUDA kernels, each beside its plain torch version (kernels/):
+escrow admission, the transaction megastep, the fused RAMP read and the
+versioned-table merge with its audit. Entry points run on the CUDA card
+unless the caller passes ``device="cpu"``.
 """
 
 from . import core, kernels, txn
 from .convert import (batch_from_numpy, escrow_from_numpy, state_from_numpy,
-                      state_to_numpy)
+                      state_to_numpy, tree_from_numpy)
 from .device import resolve_device

@@ -1,9 +1,11 @@
 """Carry state between the reference (as numpy) and the port.
 
-The reference runs with x64 off, so every array converts with its dtype
-pinned: bool stays bool, integers become int32, floats float32. The test
-side hands over numpy arrays (``jax.device_get``); this module never sees
-a JAX array type.
+The reference runs with x64 off, so TPC-C state converts with its dtype
+pinned: bool stays bool, integers become int32, floats float32. Lattice
+state trees keep each array's dtype (bfloat16 included), except the
+version stamps, which widen to the port's int64. The test side hands over
+numpy arrays (``jax.device_get``); this module never sees a JAX array
+type.
 """
 
 from __future__ import annotations
@@ -13,7 +15,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core import lattice
 from repro_torch.core.lattice import HotSetEscrow
+from repro_torch.txn.store import Table
 from repro_torch.txn.tpcc import (NewOrderBatch, OrderStatusBatch,
                                   PaymentBatch, StockLevelBatch, TPCCState)
 
@@ -71,3 +75,45 @@ def state_to_numpy(nt: NamedTuple) -> NamedTuple:
     NamedTuple of host numpy arrays; numpy fields pass through."""
     return type(nt)(*(x.detach().cpu().numpy() if torch.is_tensor(x)
                       else np.asarray(x) for x in nt))
+
+
+# the stamp fields that widen to int64: (lattice type, field)
+_STAMPS = {("VersionedSlots", "version"), ("LWWRegister", "ts")}
+_LATTICES = {cls.__name__: cls for cls in lattice.LATTICE_TYPES}
+
+
+def _tensor(a, device, dtype=None) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":   # ml_dtypes: torch reads no such numpy
+        t = torch.tensor(a.astype(np.float32), device=device).to(
+            torch.bfloat16)
+    else:
+        t = torch.tensor(a, device=device)
+    return t if dtype is None else t.to(dtype)
+
+
+def tree_from_numpy(src, device):
+    """A reference state tree of numpy arrays (``jax.device_get`` of dicts,
+    lists, tuples, lattice NamedTuples and ``Table``s) as the port's, on
+    ``device``. A lattice NamedTuple becomes the port's type of the same
+    name and a ``Table`` the port's ``Table``; stamps widen to int64;
+    ``LeaseLattice`` stamps stay host numpy int64, as in both packages."""
+    name = type(src).__name__
+    if name == "Table" and hasattr(src, "columns"):
+        return Table({k: _tensor(v, device) for k, v in src.columns.items()},
+                     _tensor(src.valid, device),
+                     _tensor(src.version, device, torch.int64))
+    if name == "LeaseLattice":
+        return lattice.LeaseLattice(np.asarray(src.stamps, np.int64))
+    if name in _LATTICES:
+        return _LATTICES[name](*(
+            _tensor(v, device, torch.int64) if (name, f) in _STAMPS
+            else tree_from_numpy(v, device)
+            for f, v in zip(src._fields, src)))
+    if hasattr(src, "_fields"):
+        raise TypeError(f"no port type for {name}")
+    if isinstance(src, dict):
+        return {k: tree_from_numpy(v, device) for k, v in src.items()}
+    if isinstance(src, (list, tuple)):
+        return type(src)(tree_from_numpy(v, device) for v in src)
+    return _tensor(src, device)

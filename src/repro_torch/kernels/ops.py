@@ -1,4 +1,4 @@
-"""Public entries for the port's three kernels.
+"""Public entries for the port's four kernels.
 
 Each entry sends the problem where its tensors lie: a CPU tensor goes to
 the plain torch version, a CUDA tensor to the hand-written kernel. There
@@ -14,6 +14,7 @@ import torch
 
 from .escrow_admit import (contention_gate, escrow_admit_cuda, residual_fcfs,
                            residual_order, settle_fast)
+from .lattice_merge import lattice_merge_cuda, lattice_merge_plain
 from .ramp_read import ramp_read_cuda, ramp_read_plain
 from .txn_megastep import MegastepOut, txn_megastep_cuda, txn_megastep_plain
 
@@ -63,3 +64,15 @@ def ramp_read_select(req_ts, nlines, ol_ts, ol_vis, ol_prep, amount, i_id
     repaired)."""
     read = ramp_read_cuda if ol_ts.is_cuda else ramp_read_plain
     return read(req_ts, nlines, ol_ts, ol_vis, ol_prep, amount, i_id)
+
+
+def lattice_merge(a_valid, a_ver, a_pay, b_valid, b_ver, b_pay,
+                  lo: float = float("-inf"), hi: float = float("inf")
+                  ) -> tuple[torch.Tensor, ...]:
+    """The VersionedSlots join fused with the threshold audit. Bit-exact
+    with ``ref.lattice_merge_ref``; on the card one kernel
+    (``lattice_merge_cuda``), on the CPU its plain version.
+
+    Returns (valid, version, payload, violation)."""
+    merge = lattice_merge_cuda if a_pay.is_cuda else lattice_merge_plain
+    return merge(a_valid, a_ver, a_pay, b_valid, b_ver, b_pay, lo, hi)

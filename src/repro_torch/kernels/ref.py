@@ -1,11 +1,12 @@
 """Definitional oracles for the port's kernels, as plain torch (the port's
 counterparts of ``repro.kernels.ref`` ``escrow_admit_ref``,
-``txn_megastep_ref`` and ``ramp_read_ref``), and the line-order sum they
-and the transactions share.
+``txn_megastep_ref``, ``ramp_read_ref`` and ``lattice_merge_ref``), and
+the line-order sum they and the transactions share.
 
 They are the ground truth the kernels and their plain versions are held
 to: a B-step sequential FCFS walk over the whole batch, the ``[B, B]``
-committed-rank matrix, plain scatter-adds, and the RAMP read's masks.
+committed-rank matrix, plain scatter-adds, the RAMP read's masks, and the
+versioned join with its threshold audit.
 """
 
 from __future__ import annotations
@@ -113,3 +114,38 @@ def ramp_read_ref(req_ts, nlines, ol_ts, ol_vis, ol_prep, amount, i_id):
     return (present, amt_sel, torch.where(present, i_id, -1),
             sum_lines(amt_sel), present.sum(1).to(torch.int32),
             repaired.sum(1).to(torch.int32))
+
+
+def audit_dtype(payload_dtype: torch.dtype) -> torch.dtype:
+    """The dtype the threshold audit compares in: the payload's own for a
+    float payload (a Python float ``lo``/``hi`` is weakly typed in JAX and
+    takes the payload's dtype), float32 for an int32 payload (JAX with x64
+    off promotes the pair to float32)."""
+    return payload_dtype if payload_dtype.is_floating_point \
+        else torch.float32
+
+
+def lattice_merge_ref(a_valid, a_ver, a_pay, b_valid, b_ver, b_pay,
+                      lo: float = float("-inf"), hi: float = float("inf")):
+    """VersionedSlots join fused with a per-row threshold check.
+
+    Join: ``valid = a | b``; ``version = max``; the payload of the strictly
+    newer side, ``a``'s on a tie. Audit: a valid merged row is flagged
+    when any payload element lies outside ``[lo, hi]``, compared in
+    :func:`audit_dtype` with ``lo``/``hi`` rounded to it (so ``hi=0.1``
+    flags no float32 or bfloat16 payload of ``0.1``); NaN is never
+    flagged.
+
+    a/b_valid [R] bool; a/b_ver [R] int; a/b_pay [R, W].
+    Returns (valid, version, payload, violation [R] bool).
+    """
+    b_newer = b_ver > a_ver
+    valid = a_valid | b_valid
+    version = torch.maximum(a_ver, b_ver)
+    payload = torch.where(b_newer[:, None], b_pay, a_pay)
+    cmp = audit_dtype(payload.dtype)
+    p = payload.to(cmp)
+    lo_t = torch.tensor(lo, dtype=cmp, device=p.device)
+    hi_t = torch.tensor(hi, dtype=cmp, device=p.device)
+    bad = (p < lo_t) | (p > hi_t)
+    return valid, version, payload, valid & bad.any(-1)

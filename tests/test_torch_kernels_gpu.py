@@ -185,3 +185,99 @@ def test_payment_on_the_card_matches_the_cpu(cuda):
     print(f"index_put_ accumulate, card == cpu: "
           f"{torch.equal(naive['cpu'], naive['cuda'])}; batch order: "
           f"{torch.equal(naive['cpu'], runs[0].w_ytd)}")
+
+
+def _bits(x):
+    """``x`` as integers of its width, so NaN payloads compare bit for
+    bit."""
+    if x.is_floating_point():
+        return x.view({2: torch.int16, 4: torch.int32}[x.element_size()])
+    return x
+
+
+def _merge_problem(seed, R, W, pay, ver, device, big=False):
+    """A seeded B4 problem: tied and differing stamps (above 2**31 with
+    ``big``), partial validity, payloads around the thresholds with NaNs
+    and 0.1s in the float ones."""
+    rng = np.random.default_rng(seed)
+    base = 2**31 - 30 if big else -1
+    va, vb = (rng.integers(base, base + 60, R) for _ in range(2))
+    vb[: R // 4] = va[: R // 4]
+    sides = []
+    for v in (va, vb):
+        p = rng.normal(0, 1, (R, W)).astype(np.float32)
+        p[rng.random((R, W)) < 0.1] = 0.1
+        if pay != "int32":
+            p[rng.random((R, W)) < 0.05] = np.nan
+        else:
+            p = np.round(p * 2**24)
+        sides.append((torch.from_numpy(rng.random(R) < 0.7),
+                      torch.from_numpy(v).to(getattr(torch, ver)),
+                      torch.from_numpy(p).to(getattr(torch, pay))))
+    return tuple(x.to(device) for s in sides for x in s)
+
+
+MERGE_EDGES = [(1, 4, "float32", "int64", False),
+               (257, 4, "float32", "int64", True),
+               (1000, 1, "float32", "int64", False),
+               (300, 8, "bfloat16", "int64", True),
+               (77, 3, "bfloat16", "int32", False),
+               (300, 4, "float32", "int32", False),
+               (129, 5, "int32", "int64", True),
+               (4096, 4, "int32", "int32", False)]
+
+
+@pytest.mark.parametrize("R,W,pay,ver,big", MERGE_EDGES)
+def test_lattice_merge_kernel_matches_plain(cuda, R, W, pay, ver, big):
+    """Kernel B4 against its plain version bit for bit, with ``hi=0.1``
+    (which must flag no payload of 0.1 in its own dtype), through the
+    wrapper, ``ops``, ``VersionedSlots.join`` and the fused merge."""
+    from repro_torch.core import lattice, merge
+    from repro_torch.kernels.lattice_merge import (lattice_merge_cuda,
+                                                   lattice_merge_plain)
+
+    args = _merge_problem(R * 7 + W, R, W, pay, ver, cuda, big)
+    before = lattice_merge_cuda.launches
+    got = lattice_merge_cuda(*args, lo=-1.0, hi=0.1)
+    torch.cuda.synchronize()
+    assert lattice_merge_cuda.launches == before + 1
+    want = lattice_merge_plain(*args, lo=-1.0, hi=0.1)
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        assert torch.equal(_bits(x), _bits(y))
+    a, b = lattice.VersionedSlots(*args[:3]), lattice.VersionedSlots(*args[3:])
+    fused, viol = merge.merge_versioned_fused(a, b, lo=-1.0, hi=0.1)
+    joined = lattice.VersionedSlots.join(a, b)
+    assert lattice_merge_cuda.launches == before + 3
+    for x, y, z in zip(fused, joined, want):
+        assert torch.equal(_bits(x), _bits(z)) and torch.equal(_bits(y),
+                                                                _bits(z))
+    assert torch.equal(viol, want[3])
+    cpu = lattice_merge_plain(*(x.cpu() for x in args), lo=-1.0, hi=0.1)
+    for x, y in zip(got, cpu):
+        assert torch.equal(_bits(x.cpu()), _bits(y))
+
+
+def test_lattice_merge_misaligned_payload_and_bad_types(cuda):
+    """A payload view 4 bytes off 16-byte alignment takes the element path
+    and agrees; a payload or stamp dtype the kernel lacks raises
+    ``TypeError`` on the card instead of running the plain version."""
+    from repro_torch.kernels.lattice_merge import (lattice_merge_cuda,
+                                                   lattice_merge_plain)
+
+    R, W = 999, 4
+    args = list(_merge_problem(5, R, W, "float32", "int64", cuda))
+    for i in (2, 5):
+        buf = torch.empty(R * W + 1, dtype=torch.float32, device=cuda)
+        buf[1:].copy_(args[i].view(-1))
+        args[i] = buf[1:].view(R, W)
+        assert args[i].data_ptr() % 16 != 0
+    got = lattice_merge_cuda(*args, lo=-0.5, hi=0.5)
+    for x, y in zip(got, lattice_merge_plain(*args, lo=-0.5, hi=0.5)):
+        assert torch.equal(_bits(x), _bits(y))
+    with pytest.raises(TypeError, match="payload"):
+        lattice_merge_cuda(*args[:2], args[2].double(), *args[3:5],
+                           args[5].double())
+    with pytest.raises(TypeError, match="stamps"):
+        lattice_merge_cuda(args[0], args[1].short(), *args[2:4],
+                           args[4].short(), args[5])

@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one CUDA card: TPC-C New-Order
-alone, the five-transaction mix, and the anti-entropy merge of divergent
-replica snapshots.
+alone, the five-transaction mix, the anti-entropy merge of divergent
+replica snapshots, and LM serving (a dense and an RWKV-6 model).
 
     python3 chip_smoke.py
 
 From the root of a checkout, on a machine with an NVIDIA H100. It builds the
-four CUDA kernels of the port from ``src/repro_torch/kernels/csrc`` (one
+six CUDA kernels of the port from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, started together, into ``build/kernels/``), then:
 
   1. prints the card and its power limit, and the build time;
@@ -42,7 +42,22 @@ four CUDA kernels of the port from ``src/repro_torch/kernels/csrc`` (one
      through the lattice_merge kernel; held bit-equal to the plain version
      on the card and the plain path on the CPU, the audit mask equal to the
      planted rows; then the kernel against its plain version on edge
-     problems, and both timed on one pairwise merge at full size.
+     problems, and both timed on one pairwise merge at full size;
+ 11. dense serving: ``repro_torch.launch.serve`` serves 16 requests of
+     smollm-360m at full width and depth (bf16 activations and KV, random
+     weights) in two static batches of 8, each prefilled in one pass whose
+     attention is the flash_attention kernel once a layer (64 launches);
+     then the kernel against its plain version on the main path's first
+     prefill problem (layer 0 of batch 1) and on edge problems, and the
+     kernel, the plain version, ``scaled_dot_product_attention`` (the
+     library yardstick, not used by the port) timed on the main problem;
+ 12. RWKV serving: the same for rwkv6-3b, whose prefill runs the
+     rwkv6_scan kernel once a layer (64 launches); no library call
+     computes the scan;
+ 13. both reduced configurations (float32) through ``Server`` with the
+     kernels on the card and with the plain path on the CPU, on the same
+     weights and seeded prompts: the generated tokens equal, the first
+     decode step's logits within 1e-4 (TF32 off).
 
 The deployment is TPC-C at the specification's per-warehouse cardinalities
 (TPC-C standard specification, clause 4.3.3.1: 10 districts, 3000 customers
@@ -52,9 +67,13 @@ traffic is batches of 256 New-Orders with 1% remote lines (spec), 32
 batches, an anti-entropy drain every 8 batches and an escrow refresh at
 every drain; the mix adds per batch 256 Payments, 64 Order-Status and 64
 Stock-Level queries (``read_frac`` 0.25) and one Delivery per district.
+The serving deployments are smollm-360m (HF HuggingFaceTB/SmolLM-360M)
+and rwkv6-3b (arXiv:2404.05892) at their published widths and depths, with
+the launcher's seeded prompts of 2-512 tokens, 32 new tokens each and
+SmolLM's context of 2048 as the KV capacity.
 
 Launch counters are set to 0 just before each main path (phases 3-4, 7,
-8 and 10) and read just after. The second-to-last line of output is the
+8, 10, 11 and 12) and read just after. The second-to-last line of output is the
 kernels' JSON record; the last line is the device record. Any failure exits
 non-zero; so does a machine without a CUDA device.
 """
@@ -81,6 +100,9 @@ SEED = 0
 READ_FRAC = 0.25         # Order-Status and Stock-Level queries per New-Order
 MIX = dict(payments=True, reads=True, deliveries=True, read_frac=READ_FRAC)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
+# dense peak operation rates of one H100 SXM (NVIDIA data sheet): bf16 on
+# the tensor cores, float32 outside them
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 SPIN_CYCLES = 100_000_000   # ~50 ms at the H100's 1.98 GHz boost clock
 
 
@@ -554,6 +576,284 @@ def anti_entropy(state):
     print(f"timing [lattice_merge, pairwise at full size] {json.dumps(row)}")
     return row
 
+SERVE_REQUESTS = 16
+SERVE_BATCH = 8
+NEW_TOKENS = 32
+SERVE_FLAGS = ["--requests", str(SERVE_REQUESTS), "--batch", str(SERVE_BATCH),
+               "--prompt-len", "512", "--new-tokens", str(NEW_TOKENS),
+               "--capacity", "2048"]   # SmolLM's context length
+# the reference's tolerances (tests/test_kernels.py), (rtol, atol): on the
+# attention output; on the scan's output and on its final state
+ATTN_TOL = {"bfloat16": (2e-2, 2e-2), "float32": (2e-5, 2e-5)}
+SCAN_TOL = {"bfloat16": ((2e-2, 2e-2), (5e-2, 5e-2)),
+            "float32": ((1e-3, 5e-4), (2e-4, 2e-4))}
+
+
+def _within(got, want, tol) -> bool:
+    """``|got - want| <= atol + rtol * |want|`` everywhere, in float32."""
+    rtol, atol = tol
+    got, want = got.float(), want.float()
+    return bool(((got - want).abs() <= atol + rtol * want.abs()).all())
+
+
+def _bound(nbytes: int, ops: float, dtype: str) -> tuple[float, str]:
+    """The least time (ms) for the bytes over the HBM rate and the
+    operations over the peak rate of their type, and which bounds."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def serve_main_path(arch, kernel):
+    """Phases 11-12: the launcher at full size, the kernel's launch count
+    from 0; checks what it served. Returns (launcher result, launches)."""
+    import torch
+
+    from repro_torch.launch import serve as launch
+
+    kernel.launches = 0
+    out = launch.run(["--arch", arch, *SERVE_FLAGS])
+    torch.cuda.synchronize()
+    launches = kernel.launches
+    srv = out["server"]
+    cfg = srv.model_cfg
+    gen = [t for r in out["requests"] for t in r.generated]
+    steps = sum(t.steps for t in srv.timings)
+    print(f"serving [{arch}]: {out['served']} requests, {out['tok_s']:.1f} "
+          f"tok/s; prefill ms per batch "
+          f"{[round(t.prefill_s * 1e3, 3) for t in srv.timings]} at prefixes "
+          f"{[t.prefix for t in srv.timings]}; decode "
+          f"{sum(t.decode_s for t in srv.timings) * 1e3 / steps:.3f} ms a "
+          f"token; {kernel.__name__} launches={launches}; bookkeeping "
+          f"{out['report']}")
+    if out["served"] != SERVE_REQUESTS or out["shed"] or \
+            len(gen) != SERVE_REQUESTS * NEW_TOKENS or \
+            not all(0 <= t < cfg.vocab for t in gen):
+        raise AssertionError(f"{arch}: the server did not serve every "
+                             f"request its {NEW_TOKENS} in-vocabulary tokens")
+    if launches != len(srv.timings) * cfg.n_layers:
+        raise AssertionError(f"{arch}: {launches} launches of "
+                             f"{kernel.__name__}, want one a layer a batch")
+    return out, launches
+
+
+def first_prefill(out):
+    """The main path's first prefill: batch 1's padded prefix on the card,
+    with the model and its config."""
+    import numpy as np
+    import torch
+
+    srv = out["server"]
+    batch = out["requests"][:SERVE_BATCH]
+    P = max(len(r.prompt) for r in batch)
+    pad = np.zeros((len(batch), P), np.int64)
+    for i, r in enumerate(batch):
+        pad[i, :len(r.prompt)] = r.prompt
+    return srv.params, srv.model_cfg, torch.from_numpy(pad[:, :P - 1]).cuda()
+
+
+def attention_problems(out):
+    """B5's main problem (layer 0 of batch 1 of phase 11's prefill) and
+    edge problems: S = 2, 13, 129; groups 1, 3, 8; hd 16, 64, 128; causal
+    and full; float32 and bfloat16. Returns [(tag, q, k, v, causal)]."""
+    import torch
+
+    from repro_torch.models import layers, transformer
+
+    params, cfg, prefix = first_prefill(out)
+    x = layers.embed(params, prefix, cfg)
+    q, k, v = transformer.qkv(params.layers[0], x, cfg,
+                              torch.arange(prefix.shape[1], device="cuda"))
+    probs = [("main: layer 0 of batch 1", q, k, v, True)]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for B, S, H, KV, hd, dt, causal in (
+            (1, 2, 8, 1, 16, torch.float32, True),
+            (2, 13, 6, 2, 64, torch.bfloat16, True),
+            (2, 13, 6, 2, 64, torch.float32, False),
+            (1, 129, 8, 8, 128, torch.bfloat16, False),
+            (2, 129, 8, 1, 128, torch.float32, True),
+            (1, 129, 15, 5, 16, torch.bfloat16, True)):
+        qkv = [torch.randn((B, S, n, hd), generator=gen, device="cuda").to(dt)
+               for n in (H, KV, KV)]
+        probs.append((f"B={B} S={S} H={H} KV={KV} hd={hd} "
+                      f"{str(dt)[6:]} causal={causal}", *qkv, causal))
+    return probs
+
+
+def flash_check_and_time(out):
+    """Phase 11's kernel row: B5 against its plain version on every problem,
+    then kernel, plain version and SDPA timed on the main problem, and its
+    bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    err = 0.0
+    problems = attention_problems(out)
+    for tag, q, k, v, causal in problems:
+        got = flash_attention_cuda(q, k, v, causal=causal)
+        want = ref.flash_attention_plain(q, k, v, causal=causal)
+        e = _max_abs_err((got.float(),), (want.float(),))
+        ok = _within(got, want, ATTN_TOL[str(q.dtype)[6:]])
+        print(f"parity [flash_attention, {tag}] max_abs_err={e} (max "
+              f"|plain| {float(want.float().abs().max()):.4g}) within "
+              f"tolerance {ok}")
+        if not ok:
+            raise AssertionError(f"flash_attention disagrees with plain: "
+                                 f"{tag}")
+        err = max(err, e)
+    _, q, k, v, _ = problems[0]
+    B, S, H, hd = q.shape
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    nbytes = _nbytes(q, k, v, q)
+    ops = 4 * hd * B * H * S * (S + 1) // 2       # QK^T and PV, j <= i
+    bound, by = _bound(nbytes, ops, str(q.dtype)[6:])
+    row = dict(max_abs_err=err, shape=[B, S, H, k.shape[2], hd],
+               bytes=nbytes, ops=ops,
+               ms=_time_ms(lambda: flash_attention_cuda(q, k, v), 50),
+               plain_ms=_time_ms(lambda: ref.flash_attention_plain(q, k, v),
+                                 10),
+               library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=True, enable_gqa=True), 50),
+               bound_ms=bound, bound_by=by)
+    print(f"timing [flash_attention, main problem] {json.dumps(row)}")
+    return row
+
+
+def scan_problems(out):
+    """B6's main problem (layer 0 of batch 1 of phase 12's prefill) and
+    edge problems: T = 2, 13, 64, 509; a nonzero s0; float32 and bfloat16.
+    Returns [(tag, r, k, v, w, u, s0)]."""
+    import torch
+
+    from repro_torch.models import layers, rwkv6
+
+    params, cfg, prefix = first_prefill(out)
+    lp = params.layers[0]
+    x = layers.rmsnorm(lp.att_norm, layers.embed(params, prefix, cfg),
+                       cfg.norm_eps)
+    r, k, v, w, _, _ = rwkv6.time_mix_inputs(
+        lp.rwkv, x, torch.zeros(x.shape[0], cfg.d_model, device="cuda"), cfg)
+    B, T, H, hd = r.shape
+    probs = [("main: layer 0 of batch 1", r, k, v, w, lp.rwkv.bonus_u,
+              torch.zeros(B, H, hd, hd, device="cuda"))]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    n = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    for B, T, H, dt in ((2, 2, 4, torch.float32), (2, 13, 8, torch.bfloat16),
+                        (1, 64, 40, torch.float32), (2, 509, 8, torch.float32),
+                        (2, 509, 8, torch.bfloat16)):
+        probs.append((f"B={B} T={T} H={H} {str(dt)[6:]} s0!=0",
+                      *(n(B, T, H, 64).to(dt) for _ in range(3)),
+                      torch.sigmoid(n(B, T, H, 64)) * 0.5 + 0.4,
+                      n(H, 64) * 0.1, n(B, H, 64, 64) * 0.2))
+    return probs
+
+
+def scan_check_and_time(out):
+    """Phase 12's kernel row: B6 against its plain version on every problem,
+    then both timed on the main problem, and its bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda
+
+    err = 0.0
+    problems = scan_problems(out)
+    for tag, *args in problems:
+        got = rwkv6_scan_cuda(*args)
+        want = ref.rwkv6_scan_plain(*args)
+        e = _max_abs_err((got[0].float(), got[1]), (want[0].float(), want[1]))
+        out_tol, state_tol = SCAN_TOL[str(args[0].dtype)[6:]]
+        ok = _within(got[0], want[0], out_tol) and \
+            _within(got[1], want[1], state_tol)
+        print(f"parity [rwkv6_scan, {tag}] max_abs_err={e} (max |plain| "
+              f"{float(want[0].float().abs().max()):.4g}) within tolerance "
+              f"{ok}")
+        if not ok:
+            raise AssertionError(f"rwkv6_scan disagrees with plain: {tag}")
+        err = max(err, e)
+    _, r, k, v, w, u, s0 = problems[0]
+    B, T, H, hd = r.shape
+    nbytes = _nbytes(r, k, v, w, u, s0, r, s0)
+    ops = scan_ops(B, T, H, hd)
+    bound, by = _bound(nbytes, ops, "float32")
+    row = dict(max_abs_err=err, shape=[B, T, H, hd], bytes=nbytes, ops=ops,
+               ms=_time_ms(lambda: rwkv6_scan_cuda(r, k, v, w, u, s0), 20),
+               plain_ms=_time_ms(lambda: ref.rwkv6_scan_plain(
+                   r, k, v, w, u, s0), 2),
+               library_ms=None, bound_ms=bound, bound_by=by)
+    print(f"timing [rwkv6_scan, main problem] {json.dumps(row)}")
+    return row
+
+
+def scan_ops(B, T, H, hd):
+    """The float32 operations the WKV scan needs: the least, over chunk
+    sizes C, of the chunked form's count a token and head. Across chunks
+    r.S and the state update k^T.v take 2 hd^2 each and the state's decay
+    hd^2 / C; within a chunk the causal half of the C x C scores and their
+    product with v take 2 (C + 1) hd; the decay scalings take 3 hd. C = 1
+    is the per-token recurrence, 5 hd^2 + 7 hd."""
+    per_token = min(4 * hd * hd + hd * hd / C + 2 * (C + 1) * hd + 3 * hd
+                    for C in range(1, T + 1))
+    return int(B * H * T * per_token)
+
+
+def card_against_cpu():
+    """Phase 13: both reduced configurations (float32) through ``Server``,
+    the kernels on the card against the plain path on the CPU, on the same
+    weights and prompts."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda
+    from repro_torch.runtime.serve import ServeConfig, Server
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for arch, kernel in (("smollm-360m", flash_attention_cuda),
+                         ("rwkv6-3b", rwkv6_scan_cuda)):
+        cfg = registry.get_config(arch).reduced()
+        on_cpu = registry.init_params(cfg, seed=SEED, device="cpu")
+        on_card = copy.deepcopy(on_cpu).cuda()
+        rng = np.random.default_rng(SEED)
+        prompts = [rng.integers(0, cfg.vocab, rng.integers(2, 41)).astype(
+            np.int32) for _ in range(8)]
+        gens, before = [], kernel.launches
+        for model, dev in ((on_card, "cuda"), (on_cpu, "cpu")):
+            srv = Server(cfg, model, ServeConfig(max_new_tokens=8,
+                                                 capacity=64), device=dev)
+            reqs = [srv.admit(p) for p in prompts]
+            for i in range(0, 8, 4):
+                srv.serve_batch(reqs[i:i + 4])
+            gens.append([r.generated for r in reqs])
+        launches = kernel.launches - before
+        # the first decode step's logits of batch 1, on both devices
+        lg = []
+        for model, dev in ((on_card, "cuda"), (on_cpu, "cpu")):
+            batch = prompts[:4]
+            P = max(len(p) for p in batch)
+            pad = np.zeros((4, P), np.int64)
+            for i, p in enumerate(batch):
+                pad[i, :len(p)] = p
+            toks = torch.from_numpy(pad).to(dev)
+            _, cache = registry.make_prefill_fn(cfg, 64)(
+                model, {"tokens": toks[:, :P - 1]})
+            lg.append(registry.make_decode_fn(cfg)(model, cache,
+                                                   toks[:, P - 1])[0].cpu())
+        err = float((lg[0] - lg[1]).abs().max())
+        print(f"small run ({arch}, reduced, float32): card kernels == CPU "
+              f"plain path tokens: {gens[0] == gens[1]}; first-step logits "
+              f"max_abs_err={err}; {kernel.__name__} launches={launches}")
+        # the card's two served batches, one launch a layer each
+        if gens[0] != gens[1] or not err <= 1e-4 or \
+                launches != 2 * cfg.n_layers:
+            raise AssertionError(f"{arch}: the card's serving differs from "
+                                 f"the CPU's")
+
 
 def main() -> int:
     import torch
@@ -565,7 +865,9 @@ def main() -> int:
 
     from repro_torch.kernels import build
     from repro_torch.kernels.escrow_admit import escrow_admit_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.ramp_read import ramp_read_cuda
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda
     from repro_torch.kernels.txn_megastep import txn_megastep_cuda
     from repro_torch.txn import (TPCCScale, assert_audit, init_state,
                                  run_loop)
@@ -732,12 +1034,32 @@ def main() -> int:
     timing["lattice_merge"] = anti_entropy(state)
     launches["lattice_merge"] = timing["lattice_merge"]["launches"]
     del state
+    torch.cuda.empty_cache()
 
-    parity_err["ramp_read"] = parity_err["lattice_merge"] = 0.0
+    # -- phase 11: dense serving, launch counts from 0 -----------------------
+    out, launches["flash_attention"] = serve_main_path("smollm-360m",
+                                                       flash_attention_cuda)
+    timing["flash_attention"] = flash_check_and_time(out)
+    del out
+    torch.cuda.empty_cache()
+
+    # -- phase 12: RWKV serving, launch counts from 0 ------------------------
+    out, launches["rwkv6_scan"] = serve_main_path("rwkv6-3b", rwkv6_scan_cuda)
+    timing["rwkv6_scan"] = scan_check_and_time(out)
+    del out
+    torch.cuda.empty_cache()
+
+    # -- phase 13: small serving runs, card kernels vs CPU plain path --------
+    card_against_cpu()
+
+    for k in ("ramp_read", "lattice_merge", "flash_attention", "rwkv6_scan"):
+        parity_err[k] = 0.0
     replaces = {"escrow_admit": "src/repro/kernels/escrow_admit.py:184",
                 "txn_megastep": "src/repro/kernels/txn_megastep.py:255",
                 "ramp_read": "src/repro/kernels/ramp_read.py:73",
-                "lattice_merge": "src/repro/kernels/lattice_merge.py:64"}
+                "lattice_merge": "src/repro/kernels/lattice_merge.py:64",
+                "flash_attention": "src/repro/kernels/flash_attention.py:95",
+                "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:93"}
     record = {"kernels": [
         {"name": k, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{k}.cu",
@@ -745,7 +1067,8 @@ def main() -> int:
          "max_abs_err": max(parity_err[k], timing[k]["max_abs_err"]),
          "ms": timing[k]["ms"],
          "plain_ms": timing[k]["plain_ms"], "bound_ms": timing[k]["bound_ms"],
-         "bound_by": "bytes", "library_ms": None}
+         "bound_by": timing[k].get("bound_by", "bytes"),
+         "library_ms": timing[k].get("library_ms")}
         for k in build.KERNELS]}
     print(f"nvidia-smi: {smi}")
     print(json.dumps(record))

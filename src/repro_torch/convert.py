@@ -1,4 +1,5 @@
-"""Carry state between the reference (as numpy) and the port.
+"""Carry state and model parameters between the reference (as numpy) and
+the port.
 
 The reference runs with x64 off, so TPC-C state converts with its dtype
 pinned: bool stays bool, integers become int32, floats float32. Lattice
@@ -14,6 +15,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from torch import nn
 
 from repro_torch.core import lattice
 from repro_torch.core.lattice import HotSetEscrow
@@ -117,3 +120,25 @@ def tree_from_numpy(src, device):
     if isinstance(src, (list, tuple)):
         return type(src)(tree_from_numpy(v, device) for v in src)
     return _tensor(src, device)
+
+
+def params_from_numpy(tree, cfg, device):
+    """A reference model's parameter pytree as numpy arrays (dicts of
+    float32 masters, the per-layer leaves stacked on a leading ``[L]``), as
+    the port's model on ``device`` with the same values: one ``Params``
+    group per dict, and ``layers`` an ``nn.ModuleList`` of ``cfg.n_layers``
+    groups, layer i taking slice i of every stacked leaf. Serves both the
+    dense and the ssm family."""
+    from repro_torch.models.layers import Params
+
+    def build(node, layer=None):
+        if isinstance(node, dict):
+            return Params(**{k: build(v, layer) for k, v in node.items()})
+        a = np.asarray(node)
+        return _tensor(a if layer is None else a[layer], device,
+                       torch.float32)
+
+    model = build({k: v for k, v in tree.items() if k != "layers"})
+    model.layers = nn.ModuleList(build(tree["layers"], i)
+                                 for i in range(cfg.n_layers))
+    return model

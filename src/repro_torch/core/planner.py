@@ -14,8 +14,10 @@ The planner runs the I-confluence analyzer over each spec and classifies it:
   COORDINATION_REQUIRED -> a synchronous collective on the critical path.
 
 The port's copy: ``repro_torch.txn.engine.Engine`` consumes the plan to pick
-its stock regime. The training/serving state registries of the reference
-belong to the model analogue and are not part of this copy.
+its stock regime, and the serving runtime (``repro_torch.runtime.serve``)
+prints its plan from :func:`serving_state_specs`. The training state
+registry of the reference belongs to the training slice and is not here
+yet.
 """
 
 from __future__ import annotations
@@ -25,8 +27,8 @@ import enum
 from typing import Optional, Sequence
 
 from .analyzer import Strategy, Verdict, classify
-from .invariants import Invariant
-from .txn import Op
+from .invariants import Invariant, InvariantKind
+from .txn import Op, OpKind
 
 
 class CoordClass(enum.Enum):
@@ -147,3 +149,43 @@ def plan(specs: Sequence[StateSpec]) -> CoordinationPlan:
     shares with amortized refresh, REQUIRED -> the synchronous 2PC engine).
     """
     return plan_states(specs)
+
+
+def _inv(name, kind, target="", params=None):
+    return Invariant(name, kind, target, None, params or {})
+
+
+def serving_state_specs() -> list[StateSpec]:
+    """State specs for the serving runtime."""
+    return [
+        StateSpec("request_ids", "or",
+                  (Op(OpKind.ASSIGN_SOME, "request_ids"),),
+                  (_inv("request_ids_unique", InvariantKind.UNIQUENESS,
+                        "request_ids"),),
+                  merge_every=0,
+                  note="replica-namespaced request IDs"),
+        StateSpec("kv_cache", "lww",
+                  (Op(OpKind.UPDATE, "kv_cache"),),
+                  (_inv("kv_reflects_tokens", InvariantKind.MATERIALIZED_VIEW,
+                        "kv_cache", {"source": "tokens"}),),
+                  merge_every=0,
+                  note="KV caches are per-sequence-private: no cross-replica "
+                       "merge"),
+        StateSpec("admission_budget", "escrow",
+                  (Op(OpKind.DECREMENT, "admission_budget"),),
+                  (_inv("budget_nonneg", InvariantKind.GREATER_THAN,
+                        "admission_budget", {"threshold": 0}),),
+                  merge_every=0,
+                  note="token-budget admission control via escrow shares"),
+        StateSpec("served_count", "gcounter",
+                  (Op(OpKind.INCREMENT, "served_count"),), (),
+                  merge_every=0),
+        StateSpec("batch_slots", "versioned",
+                  (Op(OpKind.INSERT, "batch_slots"),
+                   Op(OpKind.CASCADING_DELETE, "batch_slots")),
+                  (_inv("slot_refs_valid", InvariantKind.FOREIGN_KEY,
+                        "batch_slots", {"references": "request_ids"}),),
+                  merge_every=0,
+                  note="continuous-batching slot table: "
+                       "insert/cascading-free"),
+    ]

@@ -21,7 +21,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-KERNELS = ("escrow_admit", "txn_megastep", "ramp_read", "lattice_merge")
+KERNELS = ("escrow_admit", "txn_megastep", "ramp_read", "lattice_merge",
+           "flash_attention", "rwkv6_scan")
 
 _loaded: dict[str, object] = {}   # kernel name -> its C entry point
 

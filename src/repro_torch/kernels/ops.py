@@ -1,4 +1,4 @@
-"""Public entries for the port's four kernels.
+"""Public entries for the port's six kernels.
 
 Each entry sends the problem where its tensors lie: a CPU tensor goes to
 the plain torch version, a CUDA tensor to the hand-written kernel. There
@@ -12,10 +12,13 @@ from __future__ import annotations
 
 import torch
 
+from . import ref
 from .escrow_admit import (contention_gate, escrow_admit_cuda, residual_fcfs,
                            residual_order, settle_fast)
+from .flash_attention import flash_attention_cuda
 from .lattice_merge import lattice_merge_cuda, lattice_merge_plain
 from .ramp_read import ramp_read_cuda, ramp_read_plain
+from .rwkv6_scan import rwkv6_scan_cuda
 from .txn_megastep import MegastepOut, txn_megastep_cuda, txn_megastep_plain
 
 
@@ -76,3 +79,22 @@ def lattice_merge(a_valid, a_ver, a_pay, b_valid, b_ver, b_pay,
     Returns (valid, version, payload, violation)."""
     merge = lattice_merge_cuda if a_pay.is_cuda else lattice_merge_plain
     return merge(a_valid, a_ver, a_pay, b_valid, b_ver, b_pay, lo, hi)
+
+
+def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
+    """GQA attention with an online softmax. q [B, S, H, hd]; k/v
+    [B, S, KV, hd] -> [B, S, H, hd]. On the card one kernel
+    (``flash_attention_cuda``), which takes any S (the reference's wrapper
+    halves its blocks until they divide S); on the CPU its plain version
+    (``ref.flash_attention_plain``)."""
+    attend = flash_attention_cuda if q.is_cuda else ref.flash_attention_plain
+    return attend(q, k, v, causal=causal)
+
+
+def rwkv6_scan(r, k, v, w, u, s0) -> tuple[torch.Tensor, torch.Tensor]:
+    """The RWKV-6 WKV scan. Returns (out, final state). On the card one
+    kernel (``rwkv6_scan_cuda``), which takes any T (the reference's wrapper
+    shrinks its chunk to a divisor of T); on the CPU its plain version
+    (``ref.rwkv6_scan_plain``)."""
+    scan = rwkv6_scan_cuda if r.is_cuda else ref.rwkv6_scan_plain
+    return scan(r, k, v, w, u, s0)

@@ -1,12 +1,15 @@
 """Definitional oracles for the port's kernels, as plain torch (the port's
 counterparts of ``repro.kernels.ref`` ``escrow_admit_ref``,
-``txn_megastep_ref``, ``ramp_read_ref`` and ``lattice_merge_ref``), and
-the line-order sum they and the transactions share.
+``txn_megastep_ref``, ``ramp_read_ref``, ``lattice_merge_ref``,
+``flash_attention_ref`` and ``rwkv6_scan_ref``), and the line-order sum
+they and the transactions share.
 
 They are the ground truth the kernels and their plain versions are held
 to: a B-step sequential FCFS walk over the whole batch, the ``[B, B]``
-committed-rank matrix, plain scatter-adds, the RAMP read's masks, and the
-versioned join with its threshold audit.
+committed-rank matrix, plain scatter-adds, the RAMP read's masks, the
+versioned join with its threshold audit, attention as one masked softmax,
+and the WKV recurrence token by token. The last two are also the plain
+versions of kernels B5 and B6.
 """
 
 from __future__ import annotations
@@ -149,3 +152,44 @@ def lattice_merge_ref(a_valid, a_ver, a_pay, b_valid, b_ver, b_pay,
     hi_t = torch.tensor(hi, dtype=cmp, device=p.device)
     bad = (p < lo_t) | (p > hi_t)
     return valid, version, payload, valid & bad.any(-1)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True) -> torch.Tensor:
+    """GQA attention, the plain version of kernel B5 and the port of
+    ``flash_attention_ref``: einsum, mask, softmax, all in float32.
+    q [B, S, H, hd]; k/v [B, S, KV, hd] -> [B, S, H, hd] in q's dtype."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    qh = q.reshape(B, S, KV, H // KV, hd).float()
+    logits = torch.einsum("bqkgh,bskh->bkgqs", qh, k.float()) * hd ** -0.5
+    if causal:
+        i = torch.arange(S, device=q.device)
+        logits = logits.masked_fill(i[:, None] < i[None, :], float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", probs, v.float())
+    return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def rwkv6_scan_plain(r, k, v, w, u, s0) -> tuple[torch.Tensor, torch.Tensor]:
+    """The WKV recurrence token by token in float32, the plain version of
+    kernel B6 and the port of ``rwkv6_scan_ref``, with one difference: ``w``
+    is clamped below at 1e-9, as the TPU kernel clamps it (``log(max(w,
+    1e-9))``); the reference's oracle does not clamp, so the two agree
+    wherever ``w >= 1e-9``.
+
+    r/k/v/w [B, T, H, hd]; u [H, hd]; s0 [B, H, hd, hd] (k rows, v
+    columns). Returns (out in r's dtype, s_T float32)."""
+    T = r.shape[1]
+    rf, kf, vf = r.float(), k.float(), v.float()
+    wf = torch.clamp_min(w.float(), 1e-9)
+    uf = u.float()
+    s = s0.float()
+    outs = []
+    for t in range(T):
+        rt, kt, vt = rf[:, t], kf[:, t], vf[:, t]
+        cur = torch.einsum("bhk,bhk->bh", rt, kt * uf[None])
+        outs.append(torch.einsum("bhk,bhkv->bhv", rt, s)
+                    + cur[..., None] * vt)
+        s = s * wf[:, t, ..., None] + torch.einsum("bhk,bhv->bhkv", kt, vt)
+    return torch.stack(outs, 1).to(r.dtype), s

@@ -1,0 +1,156 @@
+"""Dense decoder-only transformer (llama/qwen family) — the port of
+``repro.models.transformer``, for serving.
+
+Covers qwen1.5-32b, smollm-360m, tinyllama-1.1b, minitron-8b. The layers
+are an ``nn.ModuleList`` walked by a Python loop (the reference scans
+stacked parameters).
+
+API (shared with ``rwkv6``):
+  init_params(cfg, seed, device)            -> the model (a ``Params``)
+  forward(params, tokens, cfg, ...)         -> [B, S, V] logits
+  prefill(params, tokens, cfg, ...)         -> (last-token logits, KVCache)
+  decode_step(params, cache, token, cfg)    -> (logits, KVCache)
+
+``loss_fn`` belongs to the training slice and is not here yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.device import resolve_device
+
+from . import kv_cache as kvc
+from . import layers as L
+from .config import ModelConfig
+
+
+def layer_init(gen: torch.Generator, cfg: ModelConfig) -> L.Params:
+    return L.Params(
+        attn_norm=L.rmsnorm_init(cfg.d_model, gen.device),
+        attn=L.attention_init(gen, cfg),
+        mlp_norm=L.rmsnorm_init(cfg.d_model, gen.device),
+        mlp=L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.act))
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> L.Params:
+    """Random float32 master weights from a seeded ``torch.Generator`` on
+    ``device`` (the card unless ``device`` says otherwise)."""
+    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    params = L.embedding_init(gen, cfg)
+    params.layers = nn.ModuleList(layer_init(gen, cfg)
+                                  for _ in range(cfg.n_layers))
+    params.final_norm = L.rmsnorm_init(cfg.d_model, gen.device)
+    return params
+
+
+def layer_apply(lp: L.Params, x: torch.Tensor, cfg: ModelConfig,
+                positions: torch.Tensor, use_flash: bool) -> torch.Tensor:
+    h = L.attention_apply(lp.attn, L.rmsnorm(lp.attn_norm, x, cfg.norm_eps),
+                          cfg, positions, causal=True,
+                          window=cfg.sliding_window, use_flash=use_flash)
+    x = x + h
+    h = L.mlp_apply(lp.mlp, L.rmsnorm(lp.mlp_norm, x, cfg.norm_eps), cfg.act)
+    return x + h
+
+
+def forward(params: L.Params, tokens: torch.Tensor, cfg: ModelConfig,
+            use_flash: bool = False, last_only: bool = False) -> torch.Tensor:
+    x = L.embed(params, tokens, cfg)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    for lp in params.layers:
+        x = layer_apply(lp, x, cfg, positions, use_flash)
+    if last_only:
+        x = x[:, -1:]
+    x = L.rmsnorm(params.final_norm, x, cfg.norm_eps)
+    return L.logits(params, x, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+
+def qkv(lp: L.Params, x: torch.Tensor, cfg: ModelConfig,
+        positions: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """A layer's rotated q [B, S, H, hd] and k, and v [B, S, KV, hd], from
+    its input ``x`` [B, S, d] at ``positions`` [S]."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim()
+    a = lp.attn
+    xa = L.rmsnorm(lp.attn_norm, x, cfg.norm_eps)
+    q = L._proj(xa, a.wq, a.get("wq_b")).reshape(B, S, cfg.n_heads, hd)
+    k = L._proj(xa, a.wk, a.get("wk_b")).reshape(B, S, cfg.n_kv_heads, hd)
+    v = L._proj(xa, a.wv, a.get("wv_b")).reshape(B, S, cfg.n_kv_heads, hd)
+    return (L.apply_rope(q, positions, cfg.rope_theta),
+            L.apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def _finish_layer(lp: L.Params, x: torch.Tensor, out: torch.Tensor,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """The attention output projection, the residual and the MLP."""
+    B, S = out.shape[:2]
+    x = x + out.reshape(B, S, -1) @ lp.attn.wo.to(out.dtype)
+    return x + L.mlp_apply(lp.mlp, L.rmsnorm(lp.mlp_norm, x, cfg.norm_eps),
+                           cfg.act)
+
+
+def _decode_layer(lp: L.Params, layer_kv: kvc.LayerKV, x: torch.Tensor,
+                  cfg: ModelConfig, pos: int,
+                  window: int) -> tuple[torch.Tensor, kvc.LayerKV]:
+    """One token (x: [B, 1, d]) against this layer's cache."""
+    B = x.shape[0]
+    at = torch.full((1,), pos, device=x.device)   # no host-to-card copy
+    q, k, v = qkv(lp, x, cfg, at)
+    layer_kv = kvc.write(layer_kv, k, v, pos)
+    k_all, v_all = kvc.read(layer_kv, x.dtype)
+    cap = k_all.shape[1]
+    slots = torch.arange(cap, device=x.device)
+    # absolute position each ring slot currently holds
+    ring_pos = torch.where(slots <= pos % cap, slots, slots - cap) \
+        + (pos // cap) * cap
+    valid = slots < min(pos + 1, cap)
+    if window:
+        valid &= ring_pos > (pos - window)
+    kv_mask = valid[None, :].expand(B, cap)
+    out = L.attend(q, k_all, v_all, at, ring_pos, causal=False, window=0,
+                   kv_mask=kv_mask)
+    return _finish_layer(lp, x, out, cfg), layer_kv
+
+
+def decode_step(params: L.Params, cache: kvc.KVCache, token: torch.Tensor,
+                cfg: ModelConfig) -> tuple[torch.Tensor, kvc.KVCache]:
+    """Logits for one new token; token: [B]. Writes the token's K/V into
+    ``cache`` in place and returns it advanced by one position."""
+    x = L.embed(params, token[:, None], cfg)
+    for i, lp in enumerate(params.layers):
+        x, _ = _decode_layer(lp, kvc.layer_slices(cache, i), x, cfg,
+                             cache.pos, cfg.sliding_window)
+    x = L.rmsnorm(params.final_norm, x, cfg.norm_eps)
+    return L.logits(params, x, cfg)[:, 0], cache._replace(pos=cache.pos + 1)
+
+
+def prefill(params: L.Params, tokens: torch.Tensor, cfg: ModelConfig,
+            capacity: Optional[int] = None, use_flash: bool = False
+            ) -> tuple[torch.Tensor, kvc.KVCache]:
+    """Process a full prompt, building the KV cache (``capacity`` slots a
+    sequence, at least the prompt's length). With ``use_flash`` each layer's
+    attention is one launch of kernel B5 on the card."""
+    B, S = tokens.shape
+    cache = kvc.make_cache(cfg, cfg.n_layers, B, capacity or S,
+                           tokens.device)
+    x = L.embed(params, tokens, cfg)
+    positions = torch.arange(S, device=tokens.device)
+    for i, lp in enumerate(params.layers):
+        q, k, v = qkv(lp, x, cfg, positions)
+        kvc.write(kvc.layer_slices(cache, i), k, v, 0)
+        out = L.attend(q, k, v, positions, positions, causal=True,
+                       window=cfg.sliding_window, use_flash=use_flash,
+                       impl=cfg.attn_impl, block_k=cfg.attn_block_k)
+        x = _finish_layer(lp, x, out, cfg)
+    x = L.rmsnorm(params.final_norm, x, cfg.norm_eps)
+    lg = L.logits(params, x[:, -1:], cfg)[:, 0]
+    return lg, cache._replace(pos=S)

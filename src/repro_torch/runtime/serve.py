@@ -1,0 +1,160 @@
+"""Serving runtime: batched generation with coordination-free bookkeeping —
+the port of ``repro.runtime.serve``.
+
+The serving plan (``core/planner.serving_state_specs``) classifies every
+piece of server state; this runtime realizes it:
+
+* request IDs — replica-namespaced (server_id ⊕ counter): unique without
+  coordination (§5.1);
+* admission control — an escrow token budget (§8): each server spends from
+  its share, refreshed off the hot path;
+* served counter — G-counter slots, read at report time.
+
+A batch is one prefill over the teacher-forced prompt prefix — kernel B5
+(dense) or B6 (ssm) once per layer on the card — then one ``decode_step``
+per generated token. The reference feeds the prefix through
+``decode_step`` a token at a time; the two are the same computation.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs import registry
+from repro_torch.core.lattice import EscrowCounter
+from repro_torch.device import resolve_device, synchronize
+from repro_torch.models import kv_cache, rwkv6
+from repro_torch.models.config import ModelConfig
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    max_batch: int = 8
+    capacity: int = 128          # KV capacity per sequence
+    max_new_tokens: int = 16
+    server_id: int = 0
+    n_servers: int = 1
+    admission_budget: float = 1e6  # total token budget across servers
+    seed: int = 0
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray
+    generated: list = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+@dataclasses.dataclass
+class BatchTiming:
+    """Host wall time of one ``serve_batch``, each part ended by a device
+    synchronize: the prefill (with its cache) and the decode loop."""
+
+    batch: int
+    prefix: int          # tokens prefilled a sequence (P - 1)
+    prefill_s: float
+    decode_s: float
+    steps: int           # decode steps (generated tokens a sequence)
+
+
+class Server:
+    """Single-logical-server static batcher on one device (the card unless
+    ``device`` says otherwise); ``params`` must lie there."""
+
+    def __init__(self, model_cfg: ModelConfig, params, cfg: ServeConfig,
+                 device=None):
+        self.device = resolve_device(device)
+        self.model_cfg = model_cfg
+        self.cfg = cfg
+        self.params = params
+        self._decode = registry.make_decode_fn(model_cfg)
+        self._prefill = registry.make_prefill_fn(model_cfg, cfg.capacity)
+        self._next_rid = 0
+        self.escrow = EscrowCounter.make(cfg.n_servers, cfg.admission_budget,
+                                         device=self.device)
+        self.served = np.zeros(cfg.n_servers)  # G-counter slots
+        self.timings: list[BatchTiming] = []
+
+    # -- coordination-free request admission --------------------------------
+
+    def new_request_id(self) -> int:
+        """'Choose some value' uniqueness: id = counter * n_servers + me."""
+        rid = self._next_rid * self.cfg.n_servers + self.cfg.server_id
+        self._next_rid += 1
+        return rid
+
+    def admit(self, prompt: np.ndarray) -> Optional[Request]:
+        """Escrow admission: spend |prompt| + max_new from the local share."""
+        cost = float(len(prompt) + self.cfg.max_new_tokens)
+        self.escrow, ok = self.escrow.try_spend(self.cfg.server_id, cost)
+        if not bool(ok):
+            return None  # shed load locally; no cross-server coordination
+        return Request(self.new_request_id(), prompt)
+
+    # -- batched generation --------------------------------------------------
+
+    def _make_cache(self, batch: int):
+        cfg = self.model_cfg
+        if cfg.family == "ssm":
+            return rwkv6.stacked_state(cfg, batch, self.device)
+        return kv_cache.make_cache(cfg, cfg.n_layers, batch,
+                                   self.cfg.capacity, self.device)
+
+    def serve_batch(self, requests: list[Request]) -> list[Request]:
+        """Prefill the teacher-forced prefix ``pad[:, :P-1]`` in one pass,
+        then generate from ``pad[:, P-1]``; a simple static batch. Shorter
+        prompts are padded with token 0 and fed like the rest, as in the
+        reference. A dense prefix longer than the KV capacity raises."""
+        B = len(requests)
+        P = max(len(r.prompt) for r in requests)
+        if self.model_cfg.family == "dense" and P - 1 > self.cfg.capacity:
+            raise ValueError(f"prompt prefix of {P - 1} tokens exceeds the "
+                             f"KV capacity {self.cfg.capacity}")
+        pad = np.zeros((B, P), np.int32)
+        for i, r in enumerate(requests):
+            pad[i, :len(r.prompt)] = r.prompt
+        tokens = torch.from_numpy(pad).long().to(self.device)
+        t0 = time.perf_counter()
+        if P > 1:
+            _, cache = self._prefill(self.params,
+                                     {"tokens": tokens[:, :P - 1]})
+        else:
+            cache = self._make_cache(B)
+        synchronize(self.device)
+        t1 = time.perf_counter()
+        token = tokens[:, P - 1]
+        for _ in range(self.cfg.max_new_tokens):
+            logits, cache = self._decode(self.params, cache, token)
+            token = torch.argmax(logits, -1)
+            for r, t in zip(requests, token.tolist()):
+                r.generated.append(t)
+        self.timings.append(BatchTiming(B, P - 1, t1 - t0,
+                                        time.perf_counter() - t1,
+                                        self.cfg.max_new_tokens))
+        for r in requests:
+            r.done = True
+        self.served[self.cfg.server_id] += B
+        return requests
+
+    def report(self) -> dict:
+        return {
+            "served_total": float(self.served.sum()),  # G-counter read
+            "escrow_remaining": float(self.escrow.remaining()),
+            "server_id": self.cfg.server_id,
+        }
+
+
+def merge_server_bookkeeping(a: Server, b: Server) -> dict:
+    """Anti-entropy between two servers' bookkeeping lattices."""
+    served = np.maximum(a.served, b.served)  # G-counter slotwise max
+    escrow = EscrowCounter.join(a.escrow, b.escrow)
+    a.served = b.served = served
+    a.escrow = b.escrow = escrow
+    return {"served_total": float(served.sum()),
+            "escrow_remaining": float(escrow.remaining())}

@@ -4,11 +4,16 @@ on the GPU machine with
 
     python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 
-Tolerance: exact. Every output is an integer, a bool, a selection, a
-float32 product of two exact operands (``price x qty``), or a float32 row
-sum that kernel and plain version both take in line order, so they agree
-bit for bit. Payment's float scatter-adds land in batch order on the card
-as on the CPU, so its state agrees bit for bit too.
+Tolerance for the database kernels (B1-B4): exact. Every output is an
+integer, a bool, a selection, a float32 product of two exact operands
+(``price x qty``), or a float32 row sum that kernel and plain version both
+take in line order, so they agree bit for bit. Payment's float
+scatter-adds land in batch order on the card as on the CPU, so its state
+agrees bit for bit too. For attention (B5) and the RWKV-6 scan (B6) the
+kernels sum in another order than their plain versions: the reference's
+tolerances (``tests/test_kernels.py``), 2e-5 in float32 and 2e-2 in
+bfloat16 for attention; for the scan ``rtol=1e-3, atol=5e-4`` on the output
+and 2e-4 on the state in float32, 2e-2 and 5e-2 in bfloat16.
 """
 
 import numpy as np
@@ -281,3 +286,86 @@ def test_lattice_merge_misaligned_payload_and_bad_types(cuda):
     with pytest.raises(TypeError, match="stamps"):
         lattice_merge_cuda(args[0], args[1].short(), *args[2:4],
                            args[4].short(), args[5])
+
+
+# (B, S, H, KV, hd, dtype, causal): tiny, ragged (S = 13, 129, 509),
+# groups 1, 3 and 8, every head dim, full and causal, both dtypes
+FLASH_EDGES = [(1, 2, 2, 2, 16, "float32", True),
+               (2, 13, 6, 2, 16, "float32", True),
+               (2, 13, 6, 3, 32, "bfloat16", False),
+               (1, 129, 8, 1, 128, "float32", True),
+               (1, 129, 8, 1, 128, "bfloat16", False),
+               (2, 64, 4, 4, 64, "float32", False),
+               (3, 509, 15, 5, 64, "bfloat16", True),
+               (1, 509, 15, 5, 64, "float32", True)]
+
+
+def _attn_tol(dtype):
+    return dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" \
+        else dict(rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,dtype,causal", FLASH_EDGES)
+def test_flash_attention_kernel_matches_plain(cuda, B, S, H, KV, hd, dtype,
+                                              causal):
+    """Kernel B5 against its plain version, through the wrapper and
+    ``ops``; a head dim or dtype the kernel lacks raises."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    gen = torch.Generator(device=cuda).manual_seed(S * 31 + hd)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn((B, S, n, hd), generator=gen, device=cuda).to(dt)
+               for n in (H, KV, KV))
+    before = flash_attention_cuda.launches
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    want = ref.flash_attention_plain(q, k, v, causal=causal)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), **_attn_tol(dtype))
+    cpu = ref.flash_attention_plain(q.cpu(), k.cpu(), v.cpu(), causal=causal)
+    torch.testing.assert_close(got.cpu().float(), cpu.float(),
+                               **_attn_tol(dtype))
+    with pytest.raises(ValueError, match="hd="):
+        flash_attention_cuda(q[..., :8].contiguous(), k[..., :8].contiguous(),
+                             v[..., :8].contiguous())
+    with pytest.raises(TypeError):
+        flash_attention_cuda(q.half(), k.half(), v.half())
+
+
+# (B, T, H, hd, dtype, s0 scale): T = 2, 13, 64, 509; every head dim
+RWKV_EDGES = [(2, 2, 3, 8, "float32", 0.0),
+              (2, 13, 8, 8, "float32", 0.2),
+              (1, 64, 4, 16, "bfloat16", 0.2),
+              (2, 64, 2, 32, "float32", 0.2),
+              (1, 509, 4, 64, "float32", 0.0),
+              (2, 509, 40, 64, "bfloat16", 0.2),
+              (1, 40, 2, 128, "float32", 0.2)]
+
+
+@pytest.mark.parametrize("B,T,H,hd,dtype,s0_scale", RWKV_EDGES)
+def test_rwkv6_scan_kernel_matches_plain(cuda, B, T, H, hd, dtype, s0_scale):
+    """Kernel B6 against its plain version, through the wrapper and
+    ``ops``, with decays as the reference's sweep draws them."""
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda
+
+    gen = torch.Generator(device=cuda).manual_seed(T * 17 + hd)
+    n = lambda *s: torch.randn(s, generator=gen, device=cuda)
+    dt = getattr(torch, dtype)
+    r, k, v = (n(B, T, H, hd).to(dt) for _ in range(3))
+    w = torch.sigmoid(n(B, T, H, hd)) * 0.5 + 0.4
+    u = n(H, hd) * 0.1
+    s0 = n(B, H, hd, hd) * s0_scale
+    before = rwkv6_scan_cuda.launches
+    out, s_T = ops.rwkv6_scan(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert rwkv6_scan_cuda.launches == before + 1
+    want, want_s = ref.rwkv6_scan_plain(r, k, v, w, u, s0)
+    bf = dtype == "bfloat16"
+    assert out.dtype == want.dtype and s_T.dtype == torch.float32
+    torch.testing.assert_close(
+        out.float(), want.float(),
+        **(dict(rtol=2e-2, atol=2e-2) if bf else dict(rtol=1e-3, atol=5e-4)))
+    torch.testing.assert_close(
+        s_T, want_s,
+        **(dict(rtol=5e-2, atol=5e-2) if bf else dict(rtol=2e-4, atol=2e-4)))

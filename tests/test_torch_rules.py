@@ -50,7 +50,9 @@ def test_port_imports_neither_jax_nor_reference():
 
 
 def test_importing_port_loads_no_jax():
-    code = ("import sys, repro_torch, repro_torch.txn, repro_torch.kernels;"
+    code = ("import sys, repro_torch, repro_torch.txn, repro_torch.kernels,"
+            " repro_torch.models, repro_torch.configs,"
+            " repro_torch.runtime.serve, repro_torch.launch.serve;"
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
             "or m.startswith(('jax.', 'repro.'))];"
             "assert not bad, bad")
@@ -61,7 +63,8 @@ def test_importing_port_loads_no_jax():
 
 def test_kernel_modules_have_no_fallback():
     for name in ("ops.py", "escrow_admit.py", "txn_megastep.py",
-                 "ramp_read.py"):
+                 "ramp_read.py", "lattice_merge.py", "flash_attention.py",
+                 "rwkv6_scan.py"):
         tree = ast.parse((PORT / "kernels" / name).read_text())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), name
 
@@ -78,6 +81,26 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     # asked for explicitly, the CPU is fine
     eng = single_host_engine(scale, device="cpu")
     assert eng.device == torch.device("cpu")
+
+
+def test_serving_entry_points_raise_without_cuda(monkeypatch):
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve as launch
+    from repro_torch.runtime.serve import ServeConfig, Server
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = registry.get_config("smollm-360m").reduced()
+    for arch in ("smollm-360m", "rwkv6-3b"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            registry.init_params(registry.get_config(arch).reduced())
+    model = registry.init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Server(cfg, model, ServeConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch.run(["--arch", "smollm-360m", "--reduced"])
+    # asked for explicitly, the CPU is fine
+    assert Server(cfg, model, ServeConfig(), device="cpu").device == \
+        torch.device("cpu")
 
 
 def test_unported_paths_raise_not_implemented():

@@ -1,0 +1,155 @@
+"""The port's serving runtime (``repro_torch.runtime.serve``) and launcher
+(``repro_torch.launch.serve``) against the JAX package, on the CPU.
+
+* request ids, escrow admission and load shedding, ``report`` and
+  ``merge_server_bookkeeping`` equal the reference ``Server``'s;
+* ``serve_batch`` generates exactly the reference's tokens for reduced
+  ``smollm-360m`` (dense) and ``rwkv6-3b`` (ssm), on the reference's
+  weights (``convert.params_from_numpy``) and seeded prompts, though the
+  port prefills the prompt prefix in one pass through the kernels' plain
+  versions and the reference feeds it a token at a time;
+* a one-token batch prefills nothing; a dense prefix longer than the KV
+  capacity raises; the launcher serves on the CPU when asked.
+
+Tolerance: exact for tokens, ids and the bookkeeping counters.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+pytest.importorskip("jax")   # the reference side
+
+import jax  # noqa: E402
+
+from repro.configs import registry as jregistry  # noqa: E402
+from repro.runtime import serve as jserve  # noqa: E402
+from repro_torch.configs import registry  # noqa: E402
+from repro_torch.convert import params_from_numpy  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.launch import serve as launch  # noqa: E402
+from repro_torch.runtime import serve  # noqa: E402
+
+CPU = "cpu"
+
+
+def _pair(arch, **scfg):
+    """(reference Server, port Server) on one reduced model's weights."""
+    jcfg = jregistry.get_config(arch).reduced()
+    cfg = registry.get_config(arch).reduced()
+    jp = jregistry.init_params(jax.random.PRNGKey(0), jcfg)
+    tp = params_from_numpy(jax.device_get(jp), cfg, CPU)
+    return (jserve.Server(jcfg, jp, jserve.ServeConfig(**scfg)),
+            serve.Server(cfg, tp, serve.ServeConfig(**scfg), device=CPU))
+
+
+def _prompts(vocab, n, lo, hi, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, rng.integers(lo, hi + 1)).astype(np.int32)
+            for _ in range(n)]
+
+
+def test_request_ids_admission_and_merge_match_reference():
+    kw = dict(n_servers=2, admission_budget=100.0, max_new_tokens=2,
+              capacity=32)
+    servers = []
+    for sid in (0, 1):
+        servers.append(_pair("smollm-360m", server_id=sid, **kw))
+    (ja, a), (jb, b) = servers
+    ids = [[s.new_request_id() for _ in range(5)] for s in (ja, a, jb, b)]
+    assert ids[0] == ids[1] and ids[2] == ids[3]
+    assert not set(ids[1]) & set(ids[3])
+    # escrow admission sheds load beyond the local share (share 50, cost 10)
+    got = [[x.admit(np.zeros(8, np.int32)) is not None for _ in range(20)]
+           for x in (ja, a)]
+    assert got[0] == got[1] and sum(got[1]) == 5
+    rid = [r.rid for r in (a.admit(np.zeros(1, np.int32)),) if r]
+    assert rid == []                       # the share is spent
+    for s in (ja, a):
+        s.served[0] += 5
+    assert a.report() == ja.report()
+    assert serve.merge_server_bookkeeping(a, b) == \
+        jserve.merge_server_bookkeeping(ja, jb)
+    assert a.report() == ja.report() and b.report() == jb.report()
+    assert a.report()["escrow_remaining"] == pytest.approx(50.0)
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "rwkv6-3b"])
+def test_serve_batch_generates_the_reference_tokens(arch):
+    """Batch 4, prompts of 2-16 tokens (a longest prompt of 14), 8 new
+    tokens, capacity 64: the setting in which the one-pass prefill was
+    checked against the token-at-a-time route."""
+    jsrv, srv = _pair(arch, max_new_tokens=8, capacity=64)
+    for batch in range(2):
+        prompts = _prompts(srv.model_cfg.vocab, 4, 2, 16, seed=batch)
+        want = jsrv.serve_batch([jsrv.admit(p) for p in prompts])
+        got = srv.serve_batch([srv.admit(p) for p in prompts])
+        assert [r.generated for r in got] == [r.generated for r in want]
+        assert [r.rid for r in got] == [r.rid for r in want]
+        assert all(r.done and len(r.generated) == 8 for r in got)
+    assert srv.report() == jsrv.report()
+    assert [t.prefix for t in srv.timings] == \
+        [max(len(p) for p in _prompts(srv.model_cfg.vocab, 4, 2, 16, seed=b))
+         - 1 for b in range(2)]
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "rwkv6-3b"])
+def test_one_token_prompts_prefill_nothing(arch, monkeypatch):
+    jsrv, srv = _pair(arch, max_new_tokens=3, capacity=16)
+    prompts = [np.array([t], np.int32) for t in (3, 7, 11)]
+
+    def no_prefill(*a, **k):
+        raise AssertionError("a one-token batch prefilled")
+    monkeypatch.setattr(srv, "_prefill", no_prefill)
+    got = srv.serve_batch([srv.admit(p) for p in prompts])
+    want = jsrv.serve_batch([jsrv.admit(p) for p in prompts])
+    assert [r.generated for r in got] == [r.generated for r in want]
+
+
+def test_prefill_goes_through_the_kernel_entries(monkeypatch):
+    """On the CPU the prefill runs the kernels' plain versions, through
+    ``ops``: once a layer for each family."""
+    calls = {"flash": 0, "scan": 0}
+    plain_flash, plain_scan = ref.flash_attention_plain, ref.rwkv6_scan_plain
+
+    def flash(*a, **k):
+        calls["flash"] += 1
+        return plain_flash(*a, **k)
+
+    def scan(*a, **k):
+        calls["scan"] += 1
+        return plain_scan(*a, **k)
+    monkeypatch.setattr(ref, "flash_attention_plain", flash)
+    monkeypatch.setattr(ref, "rwkv6_scan_plain", scan)
+    for arch in ("smollm-360m", "rwkv6-3b"):
+        cfg = registry.get_config(arch).reduced()
+        srv = serve.Server(cfg, registry.init_params(cfg, device=CPU),
+                           serve.ServeConfig(max_new_tokens=2, capacity=16),
+                           device=CPU)
+        srv.serve_batch([srv.admit(p) for p in _prompts(cfg.vocab, 2, 4, 9)])
+    assert calls == {"flash": 2, "scan": 2}
+
+
+def test_prefix_longer_than_capacity_raises():
+    cfg = registry.get_config("smollm-360m").reduced()
+    srv = serve.Server(cfg, registry.init_params(cfg, device=CPU),
+                       serve.ServeConfig(max_new_tokens=2, capacity=8),
+                       device=CPU)
+    ok = srv.serve_batch([srv.admit(np.arange(9, dtype=np.int32))])
+    assert len(ok[0].generated) == 2          # a prefix of 8 fits
+    with pytest.raises(ValueError, match="capacity"):
+        srv.serve_batch([srv.admit(np.arange(10, dtype=np.int32))])
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "rwkv6-3b"])
+def test_launcher_serves_on_the_cpu(arch, capsys):
+    out = launch.run(["--arch", arch, "--reduced", "--device", CPU,
+                      "--requests", "6", "--batch", "4", "--new-tokens", "3",
+                      "--budget", "30"])
+    text = capsys.readouterr().out
+    assert "coordination plan: 4 free / 1 escrow / 0 required" in text
+    assert "tok/s on cpu" in text and "bookkeeping:" in text
+    # budget 30 at a cost of len(prompt) + 3 a request sheds some
+    assert out["served"] + out["shed"] == 6 and out["shed"] > 0
+    assert out["report"]["served_total"] == out["served"]
+    assert sum(t.batch for t in out["server"].timings) == out["served"]

@@ -46,14 +46,16 @@ six CUDA kernels of the port from ``src/repro_torch/kernels/csrc`` (one
  11. dense serving: ``repro_torch.launch.serve`` serves 16 requests of
      smollm-360m at full width and depth (bf16 activations and KV, random
      weights) in two static batches of 8, each prefilled in one pass whose
-     attention is the flash_attention kernel once a layer (64 launches);
+     attention is the flash_attention kernel once a layer (64 launches,
+     every one on its bf16 tensor-core route, by its count a route);
      then the kernel against its plain version on the main path's first
      prefill problem (layer 0 of batch 1) and on edge problems, and the
      kernel, the plain version, ``scaled_dot_product_attention`` (the
      library yardstick, not used by the port) timed on the main problem;
  12. RWKV serving: the same for rwkv6-3b, whose prefill runs the
-     rwkv6_scan kernel once a layer (64 launches); no library call
-     computes the scan;
+     rwkv6_scan kernel once a layer (64 launches), edge problems adding w
+     at its clamp, mixed decays and T around the kernel's chunk; no
+     library call computes the scan;
  13. both reduced configurations (float32) through ``Server`` with the
      kernels on the card and with the plain path on the CPU, on the same
      weights and seeded prompts: the generated tokens equal, the first
@@ -611,6 +613,9 @@ def serve_main_path(arch, kernel):
 
     from repro_torch.launch import serve as launch
 
+    routes = getattr(kernel, "route_launches", {})   # B5: a count a route
+    for key in routes:
+        routes[key] = 0
     kernel.launches = 0
     out = launch.run(["--arch", arch, *SERVE_FLAGS])
     torch.cuda.synchronize()
@@ -624,7 +629,8 @@ def serve_main_path(arch, kernel):
           f"{[round(t.prefill_s * 1e3, 3) for t in srv.timings]} at prefixes "
           f"{[t.prefix for t in srv.timings]}; decode "
           f"{sum(t.decode_s for t in srv.timings) * 1e3 / steps:.3f} ms a "
-          f"token; {kernel.__name__} launches={launches}; bookkeeping "
+          f"token; {kernel.__name__} launches={launches}"
+          f"{f' {routes}' if routes else ''}; bookkeeping "
           f"{out['report']}")
     if out["served"] != SERVE_REQUESTS or out["shed"] or \
             len(gen) != SERVE_REQUESTS * NEW_TOKENS or \
@@ -655,7 +661,9 @@ def first_prefill(out):
 def attention_problems(out):
     """B5's main problem (layer 0 of batch 1 of phase 11's prefill) and
     edge problems: S = 2, 13, 129; groups 1, 3, 8; hd 16, 64, 128; causal
-    and full; float32 and bfloat16. Returns [(tag, q, k, v, causal)]."""
+    and full; float32 and bfloat16; then the tensor-core route's edges:
+    bfloat16 at hd 16, 32, 128, S = 65 and 127 (a ragged 64-row tile).
+    Returns [(tag, q, k, v, causal)]."""
     import torch
 
     from repro_torch.models import layers, transformer
@@ -672,7 +680,13 @@ def attention_problems(out):
             (2, 13, 6, 2, 64, torch.float32, False),
             (1, 129, 8, 8, 128, torch.bfloat16, False),
             (2, 129, 8, 1, 128, torch.float32, True),
-            (1, 129, 15, 5, 16, torch.bfloat16, True)):
+            (1, 129, 15, 5, 16, torch.bfloat16, True),
+            (1, 65, 8, 8, 16, torch.bfloat16, True),
+            (2, 65, 6, 2, 16, torch.bfloat16, False),
+            (1, 127, 8, 1, 32, torch.bfloat16, True),
+            (2, 65, 3, 1, 32, torch.bfloat16, False),
+            (1, 127, 15, 5, 128, torch.bfloat16, True),
+            (1, 65, 8, 1, 128, torch.bfloat16, False)):
         qkv = [torch.randn((B, S, n, hd), generator=gen, device="cuda").to(dt)
                for n in (H, KV, KV)]
         probs.append((f"B={B} S={S} H={H} KV={KV} hd={hd} "
@@ -724,10 +738,13 @@ def flash_check_and_time(out):
 
 def scan_problems(out):
     """B6's main problem (layer 0 of batch 1 of phase 12's prefill) and
-    edge problems: T = 2, 13, 64, 509; a nonzero s0; float32 and bfloat16.
+    edge problems: T = 2, 13, 64, 509; a nonzero s0; float32 and bfloat16;
+    then the chunked form's edges: w at the clamp (1e-12 everywhere), w
+    mixing 1e-6 and 0.999, and T = C - 1, C, C + 1 around its chunk C.
     Returns [(tag, r, k, v, w, u, s0)]."""
     import torch
 
+    from repro_torch.kernels.rwkv6_scan import CHUNK
     from repro_torch.models import layers, rwkv6
 
     params, cfg, prefix = first_prefill(out)
@@ -748,6 +765,23 @@ def scan_problems(out):
                       *(n(B, T, H, 64).to(dt) for _ in range(3)),
                       torch.sigmoid(n(B, T, H, 64)) * 0.5 + 0.4,
                       n(H, 64) * 0.1, n(B, H, 64, 64) * 0.2))
+    decays = {
+        "sigmoid": lambda *s: torch.sigmoid(n(*s)) * 0.5 + 0.4,
+        "clamp": lambda *s: torch.full(s, 1e-12, device="cuda"),
+        "mixed": lambda *s: torch.where(n(*s) > 0, 1e-6, 0.999),
+    }
+    for B, T, H, hd, dt, decay in (
+            (2, 64, 8, 64, torch.float32, "clamp"),
+            (1, 40, 4, 64, torch.bfloat16, "clamp"),
+            (2, 64, 8, 64, torch.float32, "mixed"),
+            (1, 509, 8, 64, torch.bfloat16, "mixed"),
+            (2, CHUNK - 1, 8, 64, torch.float32, "sigmoid"),
+            (2, CHUNK, 8, 32, torch.float32, "sigmoid"),
+            (2, CHUNK + 1, 8, 128, torch.bfloat16, "sigmoid")):
+        probs.append((f"B={B} T={T} H={H} hd={hd} {str(dt)[6:]} w {decay}",
+                      *(n(B, T, H, hd).to(dt) for _ in range(3)),
+                      decays[decay](B, T, H, hd), n(H, hd) * 0.1,
+                      n(B, H, hd, hd) * 0.2))
     return probs
 
 
@@ -1039,6 +1073,11 @@ def main() -> int:
     # -- phase 11: dense serving, launch counts from 0 -----------------------
     out, launches["flash_attention"] = serve_main_path("smollm-360m",
                                                        flash_attention_cuda)
+    if flash_attention_cuda.route_launches["tensor_core"] != \
+            launches["flash_attention"]:
+        raise AssertionError(f"flash_attention: not every main-path launch "
+                             f"took the tensor-core route: "
+                             f"{flash_attention_cuda.route_launches}")
     timing["flash_attention"] = flash_check_and_time(out)
     del out
     torch.cuda.empty_cache()

@@ -84,7 +84,8 @@ def lattice_merge(a_valid, a_ver, a_pay, b_valid, b_ver, b_pay,
 def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
     """GQA attention with an online softmax. q [B, S, H, hd]; k/v
     [B, S, KV, hd] -> [B, S, H, hd]. On the card one kernel
-    (``flash_attention_cuda``), which takes any S (the reference's wrapper
+    (``flash_attention_cuda``: bf16 on the tensor cores, float32 on the
+    float32 cores), which takes any S (the reference's wrapper
     halves its blocks until they divide S); on the CPU its plain version
     (``ref.flash_attention_plain``)."""
     attend = flash_attention_cuda if q.is_cuda else ref.flash_attention_plain
@@ -93,8 +94,8 @@ def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
 
 def rwkv6_scan(r, k, v, w, u, s0) -> tuple[torch.Tensor, torch.Tensor]:
     """The RWKV-6 WKV scan. Returns (out, final state). On the card one
-    kernel (``rwkv6_scan_cuda``), which takes any T (the reference's wrapper
-    shrinks its chunk to a divisor of T); on the CPU its plain version
-    (``ref.rwkv6_scan_plain``)."""
+    kernel (``rwkv6_scan_cuda``, the chunked form), which takes any T (the
+    reference's wrapper shrinks its chunk to a divisor of T); on the CPU
+    its plain version (``ref.rwkv6_scan_plain``)."""
     scan = rwkv6_scan_cuda if r.is_cuda else ref.rwkv6_scan_plain
     return scan(r, k, v, w, u, s0)

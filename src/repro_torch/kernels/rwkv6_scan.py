@@ -8,11 +8,13 @@ s0 [B, H, hd, hd] float32. Returns (out [B, T, H, hd] in r's dtype, s_T
 layer (``models/rwkv6.time_mix_apply`` with ``use_kernel``, from
 ``rwkv6.forward``).
 
-Both walk the per-token recurrence with ``w`` clamped below at 1e-9, as
-the TPU kernel clamps it; the TPU kernel's chunked form is the same
-function. Tolerance against the plain version: the kernel sums over the
-head dim in another order, so the two agree to rounding (the reference's
-``tests/test_kernels.py`` tolerances), not bit for bit.
+Both clamp ``w`` below at 1e-9, as the TPU kernel clamps it. The plain
+version walks the per-token recurrence; the kernel takes the TPU kernel's
+chunked form (chunks of 16 tokens, the decays masked inside the exponent),
+which is the same function. Tolerance against the plain version: the
+kernel sums in another order and through the chunk's cumulative decays,
+so the two agree to rounding (the reference's ``tests/test_kernels.py``
+tolerances), not bit for bit.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 from . import build
 
 HEAD_DIMS = (8, 16, 32, 64, 128)   # the kernel's templates
+CHUNK = 16                         # tokens a chunk (csrc/rwkv6_scan.cu)
 _KIND = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -91,3 +91,63 @@ def test_attend_flash_branch_matches_naive(causal):
     naive = layers.attend(q, k, v, pos, pos, causal=causal)
     flash = layers.attend(q, k, v, pos, pos, causal=causal, use_flash=True)
     np.testing.assert_allclose(_np(flash), _np(naive), rtol=2e-5, atol=2e-5)
+
+
+def _tensor_core_mirror(q, k, v, causal, tile=64):
+    """B5's tensor-core numerics in plain torch: bf16 q, k, v; the scores
+    in float32, scaled there (times log2 e, through exp2); the online
+    softmax over tiles of 64 keys from a running max of finfo(float32).min;
+    P rounded to bf16 before the P V product, whose sums are float32; the
+    denominator summed from the unrounded P; the row divided by
+    max(l, 1e-30) and rounded to bf16."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    qh = q.float().reshape(B, S, KV, H // KV, hd)
+    c = hd ** -0.5 * 1.4426950408889634
+    m = torch.full((B, KV, H // KV, S), torch.finfo(torch.float32).min)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(B, KV, H // KV, S, hd)
+    rows = torch.arange(S)[:, None]
+    for k0 in range(0, S, tile):
+        kt = k[:, k0:k0 + tile].float()
+        vt = v[:, k0:k0 + tile].float()
+        s = torch.einsum("bqkgh,bskh->bkgqs", qh, kt) * c
+        cols = torch.arange(k0, k0 + kt.shape[1])[None, :]
+        if causal:
+            s = s.masked_fill(cols > rows, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        pv = torch.einsum("bkgqs,bskh->bkgqh", p.bfloat16().float(), vt)
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd).bfloat16()
+
+
+# (B, S, H, KV, hd, causal): the serving path's problem (S = 467: a ragged
+# last tile), then the tensor-core route's smaller edges
+MIRROR_CASES = [(2, 467, 15, 5, 64, True),
+                (2, 467, 15, 5, 64, False),
+                (1, 65, 8, 1, 128, True),
+                (2, 127, 6, 3, 32, False),
+                (1, 127, 8, 8, 16, True)]
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,causal", MIRROR_CASES)
+def test_tensor_core_rounding_matches_oracle_and_pallas_kernel(B, S, H, KV,
+                                                                hd, causal):
+    """A mirror of B5's bf16 route (scores scaled in float32, P rounded to
+    bf16 before P V, float32 sums) sits within the bf16 tolerance of the
+    JAX oracle and the interpret-mode Pallas kernel (one block: S has no
+    smaller divisor the TPU kernel could use)."""
+    (jq, jk, jv), (q, k, v) = _qkv(B, S, H, KV, hd, "bfloat16", seed=S + hd)
+    got = _tensor_core_mirror(q, k, v, causal)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert bool(torch.isfinite(got.float()).all())
+    want = jref.flash_attention_ref(jq, jk, jv, causal=causal)
+    kern = flash_attention_kernel(jq, jk, jv, causal=causal, block_q=S,
+                                  block_k=S, interpret=True)
+    np.testing.assert_allclose(_np(got), _np(want), **_tol("bfloat16"))
+    np.testing.assert_allclose(_np(got), _np(kern), **_tol("bfloat16"))

@@ -297,7 +297,18 @@ FLASH_EDGES = [(1, 2, 2, 2, 16, "float32", True),
                (1, 129, 8, 1, 128, "bfloat16", False),
                (2, 64, 4, 4, 64, "float32", False),
                (3, 509, 15, 5, 64, "bfloat16", True),
-               (1, 509, 15, 5, 64, "float32", True)]
+               (1, 509, 15, 5, 64, "float32", True),
+               # the tensor-core route: every head dim, S = 65 and 127 (a
+               # ragged 64-row tile), causal and full, groups 1, 3 and 8
+               (1, 65, 8, 8, 16, "bfloat16", True),
+               (2, 65, 6, 2, 16, "bfloat16", False),
+               (1, 127, 8, 1, 32, "bfloat16", True),
+               (2, 65, 3, 1, 32, "bfloat16", False),
+               (2, 127, 4, 4, 64, "bfloat16", True),
+               (1, 65, 15, 5, 64, "bfloat16", False),
+               (1, 127, 15, 5, 128, "bfloat16", True),
+               (1, 65, 8, 1, 128, "bfloat16", False),
+               (1, 127, 24, 8, 128, "bfloat16", True)]
 
 
 def _attn_tol(dtype):
@@ -309,7 +320,8 @@ def _attn_tol(dtype):
 def test_flash_attention_kernel_matches_plain(cuda, B, S, H, KV, hd, dtype,
                                               causal):
     """Kernel B5 against its plain version, through the wrapper and
-    ``ops``; a head dim or dtype the kernel lacks raises."""
+    ``ops``; the launch takes its dtype's route (bfloat16: the tensor
+    cores); a head dim or dtype the kernel lacks raises."""
     from repro_torch.kernels.flash_attention import flash_attention_cuda
 
     gen = torch.Generator(device=cuda).manual_seed(S * 31 + hd)
@@ -317,9 +329,13 @@ def test_flash_attention_kernel_matches_plain(cuda, B, S, H, KV, hd, dtype,
     q, k, v = (torch.randn((B, S, n, hd), generator=gen, device=cuda).to(dt)
                for n in (H, KV, KV))
     before = flash_attention_cuda.launches
+    routes = dict(flash_attention_cuda.route_launches)
     got = ops.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert flash_attention_cuda.launches == before + 1
+    route = "tensor_core" if dtype == "bfloat16" else "float32"
+    routes[route] += 1
+    assert flash_attention_cuda.route_launches == routes
     want = ref.flash_attention_plain(q, k, v, causal=causal)
     assert got.dtype == want.dtype and got.shape == want.shape
     torch.testing.assert_close(got.float(), want.float(), **_attn_tol(dtype))
@@ -347,13 +363,46 @@ RWKV_EDGES = [(2, 2, 3, 8, "float32", 0.0),
 def test_rwkv6_scan_kernel_matches_plain(cuda, B, T, H, hd, dtype, s0_scale):
     """Kernel B6 against its plain version, through the wrapper and
     ``ops``, with decays as the reference's sweep draws them."""
+    _check_rwkv6_scan(cuda, B, T, H, hd, dtype, s0_scale, "sigmoid")
+
+
+# (B, T, H, hd, dtype, decay) for the chunked form (chunk C = 16): w at the
+# clamp (1e-12 everywhere, cumulative decays far below float32's range), w
+# mixing 1e-6 and 0.999, the serving path's w = exp(-exp(-4)), and T = C - 1,
+# C, C + 1; s0 nonzero throughout
+RWKV_DECAY_EDGES = [(2, 64, 4, 64, "float32", "clamp"),
+                    (1, 40, 2, 64, "bfloat16", "clamp"),
+                    (1, 17, 2, 8, "float32", "clamp"),
+                    (2, 64, 4, 64, "float32", "mixed"),
+                    (1, 509, 8, 64, "bfloat16", "mixed"),
+                    (1, 33, 2, 16, "float32", "mixed"),
+                    (2, 15, 3, 64, "float32", "sigmoid"),
+                    (2, 16, 3, 32, "float32", "sigmoid"),
+                    (2, 17, 3, 128, "bfloat16", "sigmoid"),
+                    (1, 17, 4, 64, "float32", "serving")]
+
+
+@pytest.mark.parametrize("B,T,H,hd,dtype,decay", RWKV_DECAY_EDGES)
+def test_rwkv6_scan_kernel_decay_edges(cuda, B, T, H, hd, dtype, decay):
+    """Kernel B6 against its plain version where the chunked form's
+    cumulative decays leave float32's range (the masked form) and where
+    they do not, and around the chunk's length; outputs finite."""
+    _check_rwkv6_scan(cuda, B, T, H, hd, dtype, 0.2, decay)
+
+
+def _check_rwkv6_scan(cuda, B, T, H, hd, dtype, s0_scale, decay):
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda
 
     gen = torch.Generator(device=cuda).manual_seed(T * 17 + hd)
     n = lambda *s: torch.randn(s, generator=gen, device=cuda)
     dt = getattr(torch, dtype)
     r, k, v = (n(B, T, H, hd).to(dt) for _ in range(3))
-    w = torch.sigmoid(n(B, T, H, hd)) * 0.5 + 0.4
+    shape = (B, T, H, hd)
+    w = {"sigmoid": lambda: torch.sigmoid(n(*shape)) * 0.5 + 0.4,
+         "clamp": lambda: torch.full(shape, 1e-12, device=cuda),
+         "mixed": lambda: torch.where(n(*shape) > 0, 1e-6, 0.999),
+         "serving": lambda: torch.full(shape, float(np.exp(-np.exp(-4.0))),
+                                       device=cuda)}[decay]()
     u = n(H, hd) * 0.1
     s0 = n(B, H, hd, hd) * s0_scale
     before = rwkv6_scan_cuda.launches
@@ -363,6 +412,8 @@ def test_rwkv6_scan_kernel_matches_plain(cuda, B, T, H, hd, dtype, s0_scale):
     want, want_s = ref.rwkv6_scan_plain(r, k, v, w, u, s0)
     bf = dtype == "bfloat16"
     assert out.dtype == want.dtype and s_T.dtype == torch.float32
+    assert bool(torch.isfinite(out.float()).all()) and \
+        bool(torch.isfinite(s_T).all())
     torch.testing.assert_close(
         out.float(), want.float(),
         **(dict(rtol=2e-2, atol=2e-2) if bf else dict(rtol=1e-3, atol=5e-4)))

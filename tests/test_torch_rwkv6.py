@@ -203,3 +203,95 @@ def test_stacked_state_layers_do_not_alias():
         assert x.shape[0] == CFG.n_layers
         x[0].add_(1.0)
         assert float(x[1].abs().sum()) == 0.0
+
+
+def _decayed_inputs(T, decay, seed, B=2, H=2, hd=16):
+    """``_scan_inputs`` with w replaced: at the clamp (1e-12 everywhere),
+    mixing 1e-6 and 0.999, or the serving path's exp(-exp(-4))."""
+    j, t = _scan_inputs(B, T, H, hd, "float32", seed=seed, s0_scale=0.2)
+    rng = np.random.default_rng(seed + 1)
+    w = {"clamp": np.full((B, T, H, hd), 1e-12),
+         "mixed": np.where(rng.random((B, T, H, hd)) < 0.5, 1e-6, 0.999),
+         "serving": np.full((B, T, H, hd), np.exp(-np.exp(-4.0)))}[decay]
+    w = w.astype(np.float32)
+    j[3], t[3] = jnp.asarray(w), torch.from_numpy(w)
+    return j, t
+
+
+@pytest.mark.parametrize("decay", ["clamp", "mixed"])
+def test_wkv_chunked_at_chunk_16_with_w_at_the_clamp(decay):
+    """``wkv_chunked`` at the kernel's chunk (16), its decays masked inside
+    the exponent, where the factored form would overflow float32 (16
+    tokens at the clamp: cum = -331): finite, and equal to the JAX oracle
+    and the interpret-mode Pallas kernel within the reference's scan
+    tolerances (mixed decays sum terms of very different sizes)."""
+    j, t = _decayed_inputs(32, decay, seed=7)
+    out, s = rwkv6.wkv_chunked(*t, chunk=16)
+    assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(s).all())
+    for want, want_s in (jref.rwkv6_scan_ref(*j),
+                         rwkv6_scan_kernel(*j, chunk=16, interpret=True)):
+        _close(out, want, rtol=1e-3, atol=5e-4)
+        _close(s, want_s, rtol=2e-4, atol=2e-4)
+
+
+def _chunk_mirror(r, k, v, w, u, s0, C=16):
+    """B6's chunked form as ``csrc/rwkv6_scan.cu`` computes it, in float32
+    torch: chunks of C tokens (the last padded with r = k = v = 0, w = 1);
+    a chunk whose cumulative decay products all lie in [1e-30, 1e30] takes
+    the factored form (products and one reciprocal), any other the form
+    masked inside the exponent (logs, an exp a term); the bonus on the
+    diagonal of the scores."""
+    B, T, H, hd = r.shape
+    f = lambda x: x.float().permute(0, 2, 1, 3)          # [B, H, T, hd]
+    r, k, v, w = f(r), f(k), f(v), torch.clamp_min(f(w), 1e-9)
+    pad = (-T) % C
+    if pad:
+        z = lambda x, val: torch.cat(
+            [x, torch.full((B, H, pad, hd), val)], 2)
+        r, k, v, w = z(r, 0.0), z(k, 0.0), z(v, 0.0), z(w, 1.0)
+    s = s0.float().clone()
+    outs = []
+    below = torch.ones(C, C, dtype=torch.bool).tril(-1)
+    for t0 in range(0, T + pad, C):
+        R, K, V, W = (x[:, :, t0:t0 + C] for x in (r, k, v, w))
+        P = torch.cumprod(W, 2)
+        if bool(((P >= 1e-30) & (P <= 1e30)).all()):
+            Pm = torch.cat([torch.ones_like(P[:, :, :1]), P[:, :, :-1]], 2)
+            RD, KF = R * Pm, K / P
+            KD, dec = K * (P[:, :, -1:] / P), P[:, :, -1]
+            A = torch.einsum("bhik,bhjk->bhij", RD, KF)
+        else:
+            L = torch.cumsum(torch.log(W), 2)
+            Lx = torch.cat([torch.zeros_like(L[:, :, :1]), L[:, :, :-1]], 2)
+            RD, KD = R * torch.exp(Lx), K * torch.exp(L[:, :, -1:] - L)
+            dec = torch.exp(L[:, :, -1])
+            expo = Lx[:, :, :, None] - L[:, :, None]       # [B, H, i, j, hd]
+            expo = torch.where(below[..., None], expo, float("-inf"))
+            A = torch.einsum("bhik,bhjk,bhijk->bhij", R, K, torch.exp(expo))
+        A = A * below + torch.diag_embed(torch.einsum(
+            "bhik,hk,bhik->bhi", R, u.float(), K))
+        outs.append(torch.einsum("bhik,bhkv->bhiv", RD, s)
+                    + torch.einsum("bhij,bhjv->bhiv", A, V))
+        s = dec[..., None] * s + torch.einsum("bhjk,bhjv->bhkv", KD, V)
+    out = torch.cat(outs, 2)[:, :, :T].permute(0, 2, 1, 3)
+    return out, s
+
+
+@pytest.mark.parametrize("T,decay", [(15, "serving"), (16, "serving"),
+                                     (17, "serving"), (37, "clamp"),
+                                     (37, "mixed")])
+def test_kernel_chunked_form_matches_oracle(T, decay):
+    """The chunked form kernel B6 computes, both of its branches, against
+    the JAX oracle: T = C - 1, C, C + 1 around its chunk, and decays that
+    force the masked branch; finite throughout."""
+    j, t = _decayed_inputs(T, decay, seed=8)
+    out, s = _chunk_mirror(*t)
+    assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(s).all())
+    want, want_s = jref.rwkv6_scan_ref(*j)
+    _close(out, want, rtol=1e-3, atol=5e-4)
+    _close(s, want_s, rtol=2e-4, atol=2e-4)
+    plain, plain_s = ref.rwkv6_scan_plain(*t)
+    np.testing.assert_allclose(out.numpy(), plain.numpy(), rtol=1e-3,
+                               atol=5e-4)
+    np.testing.assert_allclose(s.numpy(), plain_s.numpy(), rtol=2e-4,
+                               atol=2e-4)

@@ -14,7 +14,11 @@ six CUDA kernels of the port from ``src/repro_torch/kernels/csrc`` (one
      card, on the main path's first real admission problem and on a
      heavily contended one of the same shape, and times both (after the
      main path, also on the problem its next batch would meet, whose
-     residual walk has work: those are the times of the kernels' record);
+     residual walk has work: those are the times of the kernels' record;
+     for escrow_admit and txn_megastep the record adds the time at
+     n_res = 0, batch 0's, and the walk's us a residual transaction), and
+     prints the walk's block, tile and shared memory and the two walk
+     kernels' registers and spills from ``nvcc -Xptxas -v``;
   3. merge regime: the New-Order closed loop, then the audit;
   4. escrow regime through the kernels (sparse hot set, admission="kernel",
      effects="fused": the megastep kernel), then the strict audit; the
@@ -190,7 +194,8 @@ def check_and_time(tag, args, kw, oracle=False):
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.escrow_admit import (
-        contention_gate, escrow_admit_cuda, residual_fcfs, residual_order)
+        WALK_THREADS, contention_gate, escrow_admit_cuda, residual_fcfs,
+        residual_order, walk_shape)
     from repro_torch.kernels.txn_megastep import (
         MegastepOut, txn_megastep_cuda, txn_megastep_plain)
 
@@ -213,9 +218,13 @@ def check_and_time(tag, args, kw, oracle=False):
     if oracle:
         err_m = max(err_m, _max_abs_err(
             got_m, MegastepOut(*ref.txn_megastep_ref(*args, **kw))))
+    T, H, smem = walk_shape(*slot.shape)
     print(f"parity [{tag}] n_res={n} aborts={int((~got_m.committed).sum())}"
           f" escrow_admit max_abs_err={err_a} txn_megastep "
-          f"max_abs_err={err_m}")
+          f"max_abs_err={err_m}; walk: a block of {WALK_THREADS} threads, "
+          f"B={slot.shape[0]} L={slot.shape[1]}, tiles of T={T} "
+          f"transactions ({-(-n // T)} walked), H={H} table entries, "
+          f"{smem} bytes of dynamic shared memory")
     if err_a or err_m:
         raise AssertionError(f"kernel disagrees with plain version: {tag}")
 
@@ -245,6 +254,10 @@ def check_and_time(tag, args, kw, oracle=False):
         txn_megastep=dict(
             max_abs_err=err_m, n_res=n,
             ms=_time_ms(mega, 50, (buf, avail0)),
+            # of which the wrapper's one fill of d_count and the dense slabs
+            fill_ms=_time_ms(lambda: torch.zeros(
+                (kw["n_keys"] + 3 * kw["n_cells"],), dtype=torch.int32,
+                device=avail0.device), 50),
             plain_ms=_time_ms(lambda: txn_megastep_plain(
                 *args[:4], *gate, *args[4:], **kw), 3),
             bound_ms=bytes_m / HBM_BYTES_PER_S * 1e3))
@@ -255,7 +268,7 @@ def check_and_time(tag, args, kw, oracle=False):
 def kernel_parity(eng, state, esc):
     """Phase 2: the main path's first admission problem, and a contended
     one of its shape (hot headroom 0..11), checked against the plain
-    versions; returns the larger error per kernel."""
+    versions; returns the two rows of ``check_and_time``."""
     import torch
 
     args, kw = admission_problem(eng, state, esc, main_path_batch(eng, 0))
@@ -266,8 +279,25 @@ def kernel_parity(eng, state, esc):
     first = check_and_time("main path batch 0", args, kw)
     hard = check_and_time("contended", (contended,) + args[1:], kw,
                           oracle=True)
-    return {k: max(first[k]["max_abs_err"], hard[k]["max_abs_err"])
-            for k in first}
+    return first, hard
+
+
+def walk_costs(timing, first, hard):
+    """Add to B1's and B2's record rows the time at ``n_res`` = 0 (the main
+    path's batch 0) and the walk's cost a residual transaction, ``(ms at
+    n_res > 0 - ms at n_res = 0) x 1000 / n_res`` in us, on the timed
+    problem; print it for the contended problem too."""
+    if first["escrow_admit"]["n_res"] != 0:
+        raise AssertionError("the main path's batch 0 has residual work")
+    slope = lambda row, k: (row[k]["ms"] - first[k]["ms"]) * 1e3 \
+        / row[k]["n_res"]
+    for k in ("escrow_admit", "txn_megastep"):
+        timing[k]["ms_n_res_0"] = first[k]["ms"]
+        timing[k]["us_per_residual"] = slope(timing, k)
+        print(f"walk cost [{k}]: {first[k]['ms']} ms at n_res=0; "
+              f"{slope(timing, k)} us a residual transaction after the run "
+              f"(n_res={timing[k]['n_res']}), {slope(hard, k)} contended "
+              f"(n_res={hard[k]['n_res']})")
 
 
 def escrow_run(scale, admission, effects, device=None, batch=BATCH,
@@ -917,9 +947,13 @@ def main() -> int:
           f"{torch.version.cuda})")
     print(f"nvidia-smi: {smi}")
     t0 = time.perf_counter()
-    build.build_all()
+    logs = build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(build.KERNELS)})")
+    for k in ("escrow_admit", "txn_megastep"):   # ptxas -v: registers, spills
+        print(f"ptxas [{k}]: " + " | ".join(
+            line.split(":", 1)[-1].strip() for line in logs[k].splitlines()
+            if "Used" in line or "spill" in line))
 
     scale = TPCCScale.spec_scale(WAREHOUSES)
     tables = init_state(scale, seed=SEED)
@@ -931,13 +965,14 @@ def main() -> int:
     eng = single_host_engine(scale, stock_invariant="strict",
                              admission="kernel", effects="fused")
     tables.s_quantity.mul_(STOCK_MULTIPLIER)
-    parity_err = kernel_parity(eng, tables, eng.init_escrow(tables))
+    first, hard = kernel_parity(eng, tables, eng.init_escrow(tables))
+    parity_err = {k: max(first[k]["max_abs_err"], hard[k]["max_abs_err"])
+                  for k in first}
     del tables
 
     # -- phases 3-4: the New-Order main path, launch counts from 0 ----------
     escrow_admit_cuda.launches = 0
     txn_megastep_cuda.launches = 0
-    txn_megastep_cuda.residuals = None
     ramp_read_cuda.launches = 0
 
     merge = single_host_engine(scale)
@@ -954,15 +989,15 @@ def main() -> int:
 
     s_fused, e_fused, m_fused, rep = escrow_run(scale, "kernel", "fused")
     mega_launches = txn_megastep_cuda.launches
-    residuals = int(txn_megastep_cuda.residuals.sum())
     print(f"escrow (megastep kernel): {m_fused.neworders} committed, "
           f"{m_fused.aborts} aborts, {m_fused.cold_rejects} cold rejects, "
           f"{m_fused.refreshes} refreshes, {m_fused.throughput:,.0f} txn/s;"
-          f" txn_megastep launches={mega_launches} sum(n_res)={residuals};"
-          f" {rep}")
-    if mega_launches < N_BATCHES or residuals <= 0:
+          f" txn_megastep launches={mega_launches}; {rep}")
+    # an abort comes only from a residual transaction the walk refused
+    if mega_launches < N_BATCHES or m_fused.aborts <= 0:
         raise AssertionError("the escrow loop did not run the megastep "
-                             "kernel on every batch with residual work")
+                             "kernel on every batch, or its walk never "
+                             "had residual work")
 
     s_adm, e_adm, m_adm, rep = escrow_run(scale, "kernel", "scan",
                                           audit=False)
@@ -988,6 +1023,7 @@ def main() -> int:
         eng, s_fused, e_fused, main_path_batch(eng, N_BATCHES)))
     if timing["txn_megastep"]["n_res"] <= 0:
         raise AssertionError("the timed problem has no residual work")
+    walk_costs(timing, first, hard)
 
     # -- phase 5: the same escrow run through the plain path on the card -----
     s_plain, e_plain, m_plain, _ = escrow_run(scale, "scan", "scan",
@@ -1107,7 +1143,9 @@ def main() -> int:
          "ms": timing[k]["ms"],
          "plain_ms": timing[k]["plain_ms"], "bound_ms": timing[k]["bound_ms"],
          "bound_by": timing[k].get("bound_by", "bytes"),
-         "library_ms": timing[k].get("library_ms")}
+         "library_ms": timing[k].get("library_ms"),
+         **{f: timing[k][f] for f in ("ms_n_res_0", "us_per_residual")
+            if f in timing[k]}}
         for k in build.KERNELS]}
     print(f"nvidia-smi: {smi}")
     print(json.dumps(record))

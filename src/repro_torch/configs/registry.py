@@ -65,13 +65,17 @@ def make_prefill_fn(cfg: ModelConfig, capacity: Optional[int] = None
     """Uniform prefill step: last-token logits over the whole prompt and
     the decode state after it, through the prefill kernels (B5 for dense,
     whose KV cache gets ``capacity`` slots a sequence; B6 for ssm) on the
-    card and their plain versions on the CPU. (The reference's prefill
-    runs without its kernels; it is the same function.)"""
+    card and their plain versions on the CPU. The dense prefill attends to
+    K/V as its cache returns them (``read_back``), as the reference
+    ``Server``'s token-at-a-time prefix does; with a KV cache in the
+    activations' dtype that is the reference's ``prefill``, which runs
+    without its kernels."""
     mod = model_module(cfg)
     if cfg.family == "dense":
         def prefill(params, batch):
             return mod.prefill(params, batch["tokens"], cfg,
-                               capacity=capacity, use_flash=True)
+                               capacity=capacity, use_flash=True,
+                               read_back=True)
         return prefill
 
     def prefill(params, batch):  # ssm

@@ -9,19 +9,29 @@
 //
 // What bounds it on this card: not bytes and not arithmetic but latency.
 // The walk is sequential by definition (transaction t+1 sees t's
-// reservations), so its cost is n_res dependent round trips to L2: one load
-// of each line's cell, one atomic per committed line. The bytes the
+// reservations), so its cost is n_res dependent steps. The bytes the
 // function must move are only the residual transactions' lines and the
 // avail cells they name; the avail vector itself (the slice's ~26 MB escrow
 // admission vector, more than the 227 KB of shared memory a block can hold,
 // but inside the 50 MB L2) is neither read nor written whole.
 //
-// Design: ONE warp, lane l holding line l (see residual_walk.cuh).
+// Design: ONE block of kThreads threads (residual_walk.cuh). The block
+// stages a tile of the residual window and gathers the avail cells it
+// names into a hash table in shared memory, every load in flight at once;
+// warp 0 then walks the tile in shared memory, a step a shared read, a
+// vote and a shared store, and the block writes the cells back. So the
+// serial part no longer waits on L2 (about 1.0 us a residual transaction
+// when each step made dependent round trips there). What is left is the
+// launch, a few dependent global rounds a tile, and the staging's work in
+// shared memory: each line's scan of its transaction for earlier lines on
+// its slot and its insert into the table, which at the main path's B = 256
+// take about as long as the walk itself.
 //
-// The kernel updates avail and committed IN PLACE. The Pallas kernel copied
-// avail0 into its output; here the caller passes the fresh vector it has
-// just built (sparse_admission_problem concatenates a new one every batch)
-// and a copy of the fast mask, so no 26 MB copy runs per batch. The fast
+// The kernel updates avail IN PLACE. The Pallas kernel copied avail0 into
+// its output; here the caller passes the fresh vector it has just built
+// (sparse_admission_problem concatenates a new one every batch), so no
+// 26 MB copy runs per batch. committed starts as the fast mask, copied in
+// the kernel. The fast
 // path's settle scatter and the contention gate stay torch ops outside, as
 // they sat outside the Pallas kernel.
 
@@ -32,25 +42,35 @@
 
 namespace {
 
-__global__ void escrow_admit_walk(const int32_t* __restrict__ n_res,
-                                  const int32_t* __restrict__ res_idx,
-                                  const int32_t* __restrict__ slot,
-                                  const int32_t* __restrict__ qty,
-                                  const uint8_t* __restrict__ line_valid,
-                                  int32_t* avail, uint8_t* committed, int L) {
-  residual_walk(n_res, res_idx, slot, qty, line_valid, avail, committed, L);
+constexpr int kThreads = 1024;
+
+__global__ void __launch_bounds__(kThreads) escrow_admit_walk(
+    const int32_t* __restrict__ n_res, const int32_t* __restrict__ res_idx,
+    const int32_t* __restrict__ slot, const int32_t* __restrict__ qty,
+    const uint8_t* __restrict__ line_valid, const uint8_t* __restrict__ fast,
+    int32_t* avail, uint8_t* committed, int B, int L, int T, int H) {
+  extern __shared__ int4 smem[];
+  walk::residual_walk(n_res, res_idx, slot, qty, line_valid, fast, avail,
+                      committed, B, L, T, H, smem);
 }
 
 }  // namespace
 
+// T transactions a tile, H table entries and smem bytes of dynamic shared
+// memory, as the wrapper computed them (kernels/escrow_admit.py).
 extern "C" int escrow_admit_launch(const void* n_res, const void* res_idx,
                                    const void* slot, const void* qty,
-                                   const void* line_valid, void* avail,
-                                   void* committed, int L, void* stream) {
-  escrow_admit_walk<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+                                   const void* line_valid, const void* fast,
+                                   void* avail, void* committed, int B, int L,
+                                   int T, int H, int smem, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      escrow_admit_walk, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  escrow_admit_walk<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(n_res), static_cast<const int32_t*>(res_idx),
       static_cast<const int32_t*>(slot), static_cast<const int32_t*>(qty),
-      static_cast<const uint8_t*>(line_valid), static_cast<int32_t*>(avail),
-      static_cast<uint8_t*>(committed), L);
+      static_cast<const uint8_t*>(line_valid),
+      static_cast<const uint8_t*>(fast), static_cast<int32_t*>(avail),
+      static_cast<uint8_t*>(committed), B, L, T, H);
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,25 +13,35 @@
 //   phase 4 — RAMP stamps ol_ts and line amounts price x qty.
 //
 // What bounds it on this card: bytes. The function must write the three
-// dense [n_cells] slabs (at the slice's 64 spec-scale warehouses,
-// 3 x 26 MB per batch); the [B, L] window and the avail cells it names are
-// tens of KB. The walk adds n_res dependent L2 round trips, as in
-// escrow_admit.
+// dense [n_cells] slabs (at the slice's 64 spec-scale warehouses, 3 x 26 MB
+// per batch); the [B, L] window and the avail cells it names are tens of
+// KB. The wrapper zeroes the slabs with one torch.zeros, at the HBM rate:
+// folding that into this one-block kernel would need a grid-wide barrier
+// and move no fewer bytes. The kernel itself is latency on one SM: the
+// walk's staging and its n_res serial steps, the rank's dependence on
+// every earlier transaction, and phase 3b's global atomics.
 //
-// Design: ONE block. Warp 0 runs phase 2 (residual_walk.cuh, the
-// escrow_admit walk) while the other warps wait at a block barrier; phases
-// 3-4 then run with every thread of the block striding over the [B, L]
-// window. All accumulations are integer atomics (atomicSub on avail,
-// atomicAdd on d_count and the slabs), which are exact in any order; rank
-// is an O(B) count per transaction, so it follows batch order by
-// construction.
+// Design: ONE block of kThreads threads.
+//   phase 2  — residual_walk.cuh, the escrow_admit walk: the tile's lines
+//              and cells staged in shared memory by the whole block, then
+//              walked there by warp 0, so no step waits on L2;
+//   phase 3a — rank and d_count over the batch in chunks of kThreads
+//              transactions: each chunk's keys and verdicts are staged in
+//              shared memory, thread t counts the committed same-key
+//              transactions before it in the chunk there (broadcast reads,
+//              no global load in the loop) and adds its key's count from
+//              earlier chunks, which is d_count itself, advanced by the
+//              chunk's commits after every thread has read it. So rank
+//              follows batch order for any B, and is stored for aborted
+//              transactions too;
+//   phase 3b/4 — every thread strides over the [B, L] window, loading
+//              kBatch elements before it uses any: the fast path's settle
+//              (atomicSub on avail), the slabs (atomicAdd), the stamps.
+//              Integer atomics are exact in any order.
 //
 // The kernel updates avail IN PLACE: the caller passes the fresh vector it
 // has just built (sparse_admission_problem concatenates a new one every
-// batch), where the Pallas kernel copied avail0 into its output. The
-// zeroing of d_count and the slabs is the wrapper's; writing the dense
-// slabs is what the caller's dense adds consume, it is the kernel's cost at
-// this size and is left for later work.
+// batch), where the Pallas kernel copied avail0 into its output.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -55,7 +65,7 @@ struct MegaArgs {
   const uint8_t* remote_line;
   const int32_t* ramp_ts;
   const float* price_row;
-  uint8_t* committed;   // in: fast mask copy; out: verdicts
+  uint8_t* committed;   // out: verdicts
   int32_t* avail;       // in: avail0 (the caller's); out: fully settled
   int32_t* rank;
   int32_t* d_count;     // zeroed by the wrapper
@@ -66,39 +76,76 @@ struct MegaArgs {
   float* amount;
   int B;
   int L;
+  int T;                // transactions a walk tile
+  int H;                // table entries of a full tile
 };
 
 __global__ void __launch_bounds__(kThreads) txn_megastep_kernel(MegaArgs a) {
-  // ---- phase 2: residual FCFS walk (warp 0) ------------------------------
-  if (threadIdx.x < 32)
-    residual_walk(a.n_res, a.res_idx, a.slot, a.qty, a.line_valid, a.avail,
-                  a.committed, a.L);
-  __syncthreads();
+  extern __shared__ int4 smem[];
+  __shared__ int chunk_key[kThreads];
+  __shared__ uint8_t chunk_committed[kThreads];
 
-  const int B = a.B, L = a.L, N = B * L;
-  // ---- phase 3a: per-transaction rank and district counts ----------------
-  for (int t = threadIdx.x; t < B; t += blockDim.x) {
-    const int key = a.key_local[t];
-    int r = 0;
-    for (int u = 0; u < t; ++u)
-      r += (a.key_local[u] == key && __ldcg(a.committed + u)) ? 1 : 0;
-    a.rank[t] = r;
-    if (__ldcg(a.committed + t)) atomicAdd(a.d_count + key, 1);
+  // ---- phase 2: residual FCFS walk (the whole block; ends at a barrier) --
+  walk::residual_walk(a.n_res, a.res_idx, a.slot, a.qty, a.line_valid,
+                      a.fast, a.avail, a.committed, a.B, a.L, a.T, a.H,
+                      smem);
+
+  const int B = a.B, L = a.L, N = B * L, tid = threadIdx.x;
+  // ---- phase 3a: rank and district counts, a chunk of kThreads at a time -
+  for (int c0 = 0; c0 < B; c0 += kThreads) {
+    const int t = c0 + tid;
+    const bool in = t < B;
+    const int key = in ? a.key_local[t] : -1;
+    const bool com = in && __ldcg(a.committed + t);
+    chunk_key[tid] = key;
+    chunk_committed[tid] = com;
+    __syncthreads();
+    if (in) {
+      int r = __ldcg(a.d_count + key);   // commits of earlier chunks
+      for (int u = 0; u < tid; ++u)
+        r += (chunk_key[u] == key && chunk_committed[u]) ? 1 : 0;
+      a.rank[t] = r;
+    }
+    __syncthreads();   // every read of d_count precedes this chunk's adds
+    if (com) atomicAdd(a.d_count + key, 1);
+    __syncthreads();
   }
   // ---- phase 3b + 4: settle, slabs and stamps over the [B, L] window -----
-  for (int e = threadIdx.x; e < N; e += blockDim.x) {
-    const int t = e / L;
-    const bool v = a.line_valid[e] != 0;
-    const int q = a.qty[e];
-    if (v && a.fast[t]) atomicSub(a.avail + a.slot[e], q);
-    if (__ldcg(a.committed + t) && a.local_line[e]) {
-      const int cell = a.cell_local[e];
-      atomicAdd(a.stock_dec + cell, q);
-      atomicAdd(a.stock_cnt + cell, 1);
-      if (a.remote_line[e]) atomicAdd(a.stock_rcnt + cell, 1);
+  // kBatch elements a thread a round: every load first, then the atomics
+  // and stores, so a round waits on one memory latency
+  constexpr int kB = walk::kBatch;
+  for (int e0 = tid; e0 < N; e0 += kB * blockDim.x) {
+    bool v[kB], settle[kB], land[kB], remote[kB];
+    int q[kB], s[kB], cell[kB], ts[kB];
+    float price[kB];
+#pragma unroll
+    for (int k = 0; k < kB; ++k) {
+      const int e = e0 + k * blockDim.x;
+      const bool in = e < N;
+      const int t = in ? e / L : 0;
+      v[k] = in && a.line_valid[e];
+      settle[k] = v[k] && a.fast[t];
+      land[k] = in && a.local_line[e] && __ldcg(a.committed + t);
+      remote[k] = in && a.remote_line[e];
+      q[k] = in ? a.qty[e] : 0;
+      s[k] = in ? a.slot[e] : 0;
+      cell[k] = in ? a.cell_local[e] : 0;
+      ts[k] = in ? a.ramp_ts[t] : 0;
+      price[k] = in ? a.price_row[e] : 0.0f;
     }
-    a.ol_ts[e] = v ? a.ramp_ts[t] : -1;
-    a.amount[e] = v ? a.price_row[e] * static_cast<float>(q) : 0.0f;
+#pragma unroll
+    for (int k = 0; k < kB; ++k) {
+      const int e = e0 + k * blockDim.x;
+      if (e >= N) continue;
+      if (settle[k]) atomicSub(a.avail + s[k], q[k]);
+      if (land[k]) {
+        atomicAdd(a.stock_dec + cell[k], q[k]);
+        atomicAdd(a.stock_cnt + cell[k], 1);
+        if (remote[k]) atomicAdd(a.stock_rcnt + cell[k], 1);
+      }
+      a.ol_ts[e] = v[k] ? ts[k] : -1;
+      a.amount[e] = v[k] ? price[k] * static_cast<float>(q[k]) : 0.0f;
+    }
   }
 }
 
@@ -110,7 +157,8 @@ extern "C" int txn_megastep_launch(
     const void* cell_local, const void* local_line, const void* remote_line,
     const void* ramp_ts, const void* price_row, void* committed, void* avail,
     void* rank, void* d_count, void* stock_dec, void* stock_cnt,
-    void* stock_rcnt, void* ol_ts, void* amount, int B, int L, void* stream) {
+    void* stock_rcnt, void* ol_ts, void* amount, int B, int L, int T, int H,
+    int smem, void* stream) {
   MegaArgs a{static_cast<const int32_t*>(n_res),
              static_cast<const int32_t*>(res_idx),
              static_cast<const int32_t*>(slot),
@@ -133,7 +181,13 @@ extern "C" int txn_megastep_launch(
              static_cast<int32_t*>(ol_ts),
              static_cast<float*>(amount),
              B,
-             L};
-  txn_megastep_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+             L,
+             T,
+             H};
+  cudaError_t err = cudaFuncSetAttribute(
+      txn_megastep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  txn_megastep_kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,6 +9,14 @@ docstring), so only the *residual* transactions — those with a line on an
 oversubscribed cell — replay FCFS, in batch order, against the original
 ``avail0``. Level 2 returns ``avail`` carrying the residual reservations
 only; the fast path settles with one scatter outside (:func:`settle_fast`).
+
+On the card Level 2 is one block (``csrc/residual_walk.cuh``): it walks the
+residual window in tiles of at most T transactions (:func:`walk_shape`),
+staging each tile's lines and the avail cells they name in shared memory,
+so the serial walk over the tile touches no global memory; each tile's
+cells are written back before the next is gathered, so the tiles equal
+one walk. T comes from the shared memory a block may use: the main path's
+B = 256, L = 15 is one tile.
 """
 
 from __future__ import annotations
@@ -18,6 +26,55 @@ import ctypes
 import torch
 
 from . import build
+
+
+# threads of the walk's block (kThreads in csrc/escrow_admit.cu and
+# csrc/txn_megastep.cu) and the dynamic shared memory a walk tile may take,
+# of the 227 KB a block of the H100 may opt into (the megastep adds 5 KB of
+# its own)
+WALK_THREADS = 1024
+WALK_SMEM_BUDGET = 200 * 1024
+
+
+def walk_table_size(lines: int) -> int:
+    """Entries of the walk's hash table for a tile of ``lines`` lines: a
+    power of two of at least twice the lines, at least 32 (``table_size``
+    in ``csrc/residual_walk.cuh``)."""
+    h = 32
+    while h < 2 * lines:
+        h *= 2
+    return h
+
+
+def walk_hash(slot, H: int):
+    """The first entry the walk's table probes for ``slot`` (an int or an
+    int64 array) in a table of ``H`` entries: Fibonacci hashing, the top
+    log2(H) bits of the low 32 of slot x 0x9E3779B9 (``hash`` in
+    ``csrc/residual_walk.cuh``)."""
+    return ((slot * 0x9E3779B9) & 0xFFFFFFFF) >> (32 - H.bit_length() + 1)
+
+
+def walk_smem_bytes(T: int, L: int) -> int:
+    """Dynamic shared memory of a walk tile of ``T`` transactions of ``L``
+    lines: four int32 arrays of its lines, the table's int32 keys and
+    values, a verdict byte a transaction; rounded up to 16 bytes."""
+    raw = 16 * T * L + 8 * walk_table_size(T * L) + T
+    return -(-raw // 16) * 16
+
+
+def walk_shape(B: int, L: int) -> tuple[int, int, int]:
+    """``(T, H, smem)`` of the walk over a batch of ``B`` transactions of
+    ``L`` lines: the most transactions a tile (at most ``B``) whose shared
+    memory fits ``WALK_SMEM_BUDGET``, the table entries of a full tile and
+    the tile's dynamic shared memory in bytes."""
+    lo, hi = 1, max(B, 1)
+    while lo < hi:                     # bytes grow with T
+        mid = (lo + hi + 1) // 2
+        if walk_smem_bytes(mid, L) <= WALK_SMEM_BUDGET:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo, walk_table_size(lo * L), walk_smem_bytes(lo, L)
 
 
 def contention_gate(avail0: torch.Tensor, slot: torch.Tensor,
@@ -87,7 +144,8 @@ def escrow_admit_cuda(avail0, slot, qty, line_valid, fast, res_idx, n_res
     Same arguments and result as :func:`residual_fcfs`, except that the
     kernel updates ``avail0`` in place and returns it as ``avail``: pass a
     vector the caller no longer needs (the engine builds a fresh one every
-    batch). Launches on the current stream without synchronising;
+    batch). Any ``B``: the walk runs in tiles of :func:`walk_shape`.
+    Launches on the current stream without synchronising;
     ``escrow_admit_cuda.launches`` counts the launches."""
     B, L = slot.shape
     A = avail0.shape[0]
@@ -103,12 +161,13 @@ def escrow_admit_cuda(avail0, slot, qty, line_valid, fast, res_idx, n_res
             (res_idx, "res_idx", torch.int32, (B,)),
             (n_res, "n_res", torch.int32, (1,))):
         build.check_tensor(x, name, dtype, shape)
-    committed = fast.clone()
-    fn = build.load("escrow_admit",
-                    [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p])
+    committed = torch.empty_like(fast)   # the kernel starts it as fast
+    fn = build.load("escrow_admit", [ctypes.c_void_p] * 8
+                    + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     err = fn(n_res.data_ptr(), res_idx.data_ptr(), slot.data_ptr(),
-             qty.data_ptr(), line_valid.data_ptr(), avail0.data_ptr(),
-             committed.data_ptr(), L,
+             qty.data_ptr(), line_valid.data_ptr(), fast.data_ptr(),
+             avail0.data_ptr(), committed.data_ptr(), B, L,
+             *walk_shape(B, L),
              torch.cuda.current_stream(avail0.device).cuda_stream)
     build.check("escrow_admit", err)
     escrow_admit_cuda.launches += 1

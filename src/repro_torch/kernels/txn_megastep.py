@@ -9,6 +9,13 @@ accumulates the three stock slabs, and stamps ``ol_ts`` / ``amount``. It
 returns effect PRODUCTS that the caller (txn/tpcc.py
 ``_neworder_fused_effects``) lands with dense adds and row scatters.
 
+The walk is escrow_admit's (``csrc/residual_walk.cuh``): tiles of the
+residual window staged in shared memory and walked there by one warp
+(:func:`~repro_torch.kernels.escrow_admit.walk_shape`). The rank then
+reads the batch's keys and verdicts from shared memory, a chunk of the
+block's threads at a time, each chunk starting from the counts of the
+chunks before it.
+
 Bit-exactness holds phase by phase: rank and d_count are integer counts in
 batch order; the slabs are integer sums, exact in any order (``s_ytd`` is
 float32 but its addends are integers far below 2**24, where float32 sums
@@ -24,7 +31,7 @@ from typing import NamedTuple
 import torch
 
 from . import build
-from .escrow_admit import residual_fcfs, settle_fast
+from .escrow_admit import residual_fcfs, settle_fast, walk_shape
 
 
 class MegastepOut(NamedTuple):
@@ -113,10 +120,10 @@ def txn_megastep_cuda(avail0, slot, qty, line_valid, fast, res_idx, n_res,
     ``residual_order``. Returns :class:`MegastepOut` with ``avail`` fully
     settled: the kernel updates ``avail0`` in place and returns it, so pass
     a vector the caller no longer needs (the engine builds a fresh one every
-    batch). Launches on the current stream without synchronising;
-    ``txn_megastep_cuda.launches`` counts the launches and
-    ``txn_megastep_cuda.residuals`` (a device tensor, ``None`` until the
-    first launch) sums their ``n_res``."""
+    batch). Any ``B``; ``d_count`` and the dense slabs are zeroed here, in
+    one fill at the HBM rate, and are views into it. Launches on the
+    current stream without synchronising; ``txn_megastep_cuda.launches``
+    counts the launches."""
     B, L = slot.shape
     A = avail0.shape[0]
     if L > 32:
@@ -139,27 +146,24 @@ def txn_megastep_cuda(avail0, slot, qty, line_valid, fast, res_idx, n_res,
         build.check_tensor(x, name, dtype, shape)
     dev = avail0.device
     i32 = dict(dtype=torch.int32, device=dev)
+    counts = torch.zeros((n_keys + 3 * n_cells,), **i32)
+    slabs = counts[n_keys:].view(3, n_cells)
     out = MegastepOut(
-        committed=fast.clone(), avail=avail0,
-        rank=torch.empty((B,), **i32), d_count=torch.zeros((n_keys,), **i32),
-        stock_dec=torch.zeros((n_cells,), **i32),
-        stock_cnt=torch.zeros((n_cells,), **i32),
-        stock_rcnt=torch.zeros((n_cells,), **i32),
+        committed=torch.empty_like(fast), avail=avail0,   # committed: in kernel
+        rank=torch.empty((B,), **i32), d_count=counts[:n_keys],
+        stock_dec=slabs[0], stock_cnt=slabs[1], stock_rcnt=slabs[2],
         ol_ts=torch.empty((B, L), **i32),
         amount=torch.empty((B, L), dtype=torch.float32, device=dev))
     fn = build.load("txn_megastep", [ctypes.c_void_p] * 21
-                    + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+                    + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     ins = (n_res, res_idx, slot, qty, line_valid, fast, key_local,
            cell_local, local_line, remote_line, ramp_ts, price_row)
     err = fn(*(x.data_ptr() for x in ins), *(x.data_ptr() for x in out),
-             B, L, torch.cuda.current_stream(dev).cuda_stream)
+             B, L, *walk_shape(B, L),
+             torch.cuda.current_stream(dev).cuda_stream)
     build.check("txn_megastep", err)
     txn_megastep_cuda.launches += 1
-    # running device-side count of residual transactions walked (no sync)
-    tally = txn_megastep_cuda.residuals
-    txn_megastep_cuda.residuals = n_res if tally is None else tally + n_res
     return out
 
 
 txn_megastep_cuda.launches = 0
-txn_megastep_cuda.residuals = None

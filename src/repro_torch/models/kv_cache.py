@@ -99,9 +99,12 @@ def write(layer: LayerKV, k_new: torch.Tensor, v_new: torch.Tensor,
     return layer
 
 
-def read(layer: LayerKV, dtype: torch.dtype) -> tuple[torch.Tensor,
-                                                      torch.Tensor]:
-    """Full-capacity dequantized K/V: [B, S, KV, hd]."""
+def read(layer: LayerKV, dtype: torch.dtype, n: Optional[int] = None
+         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dequantized K/V [B, S, KV, hd] in ``dtype``: the full capacity, or
+    with ``n`` only the first ``n`` slots (the serving prefill's)."""
+    if n is not None:
+        layer = LayerKV(*(None if x is None else x[:, :n] for x in layer))
     if layer.k.dtype == torch.int8:
         return (dequantize(layer.k, layer.k_scale, dtype),
                 dequantize(layer.v, layer.v_scale, dtype))

@@ -134,11 +134,19 @@ def decode_step(params: L.Params, cache: kvc.KVCache, token: torch.Tensor,
 
 
 def prefill(params: L.Params, tokens: torch.Tensor, cfg: ModelConfig,
-            capacity: Optional[int] = None, use_flash: bool = False
-            ) -> tuple[torch.Tensor, kvc.KVCache]:
+            capacity: Optional[int] = None, use_flash: bool = False,
+            read_back: bool = False) -> tuple[torch.Tensor, kvc.KVCache]:
     """Process a full prompt, building the KV cache (``capacity`` slots a
     sequence, at least the prompt's length). With ``use_flash`` each layer's
-    attention is one launch of kernel B5 on the card."""
+    attention is one launch of kernel B5 on the card.
+
+    With ``read_back`` (the serving prefill) each layer attends to its K/V
+    as the cache returns them, ``kvc.read`` of the first S slots in the
+    activations' dtype, as the reference ``decode_step`` does token by
+    token: an int8 cache is quantized then dequantized, a cache of another
+    float dtype is cast. Where the cache holds the activations' dtype the
+    read-back is the fresh K/V bit for bit, so they are kept. The default
+    is the reference's ``prefill``, which attends to the fresh K/V."""
     B, S = tokens.shape
     cache = kvc.make_cache(cfg, cfg.n_layers, B, capacity or S,
                            tokens.device)
@@ -146,7 +154,9 @@ def prefill(params: L.Params, tokens: torch.Tensor, cfg: ModelConfig,
     positions = torch.arange(S, device=tokens.device)
     for i, lp in enumerate(params.layers):
         q, k, v = qkv(lp, x, cfg, positions)
-        kvc.write(kvc.layer_slices(cache, i), k, v, 0)
+        layer = kvc.write(kvc.layer_slices(cache, i), k, v, 0)
+        if read_back and layer.k.dtype != x.dtype:
+            k, v = kvc.read(layer, x.dtype, S)
         out = L.attend(q, k, v, positions, positions, causal=True,
                        window=cfg.sliding_window, use_flash=use_flash,
                        impl=cfg.attn_impl, block_k=cfg.attn_block_k)

@@ -13,7 +13,12 @@ piece of server state; this runtime realizes it:
 A batch is one prefill over the teacher-forced prompt prefix — kernel B5
 (dense) or B6 (ssm) once per layer on the card — then one ``decode_step``
 per generated token. The reference feeds the prefix through
-``decode_step`` a token at a time; the two are the same computation.
+``decode_step`` a token at a time. The one-pass prefill computes the same
+function: every prefix position attends causally to the K/V the cache
+holds for it, dequantized from int8 or cast to the activations' dtype as
+the reference's ``kvc.read`` returns them, and the RWKV state is the
+scan's. The two differ only in the order of float sums, not in the
+function.
 """
 
 from __future__ import annotations

@@ -23,7 +23,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels.escrow_admit import (  # noqa: E402
-    contention_gate, escrow_admit_cuda, residual_fcfs, residual_order)
+    contention_gate, escrow_admit_cuda, residual_fcfs, residual_order,
+    walk_hash, walk_shape)
 from repro_torch.kernels.ramp_read import (  # noqa: E402
     ramp_read_cuda, ramp_read_plain)
 from repro_torch.kernels.txn_megastep import (  # noqa: E402
@@ -43,16 +44,52 @@ def cuda():
     return torch.device("cuda")
 
 
+BIG = np.iinfo(np.int32).max // 2
+
+
 def _problem(seed, B=16, L=6, A=48, n_keys=12, n_cells=40, lo=0, hi=40,
-             dup_heavy=False, device="cpu"):
+             dup_heavy=False, distinct=False, collide=0, by="hash",
+             sentinel=False, device="cpu"):
+    """A seeded megastep problem. ``distinct``: all B x L slots distinct
+    (A = B L) and every transaction residual (its first line valid and one
+    short of its cell); ``collide``: the slots take ``collide`` values
+    that share the walk table's first probe (``by="hash"``: equal under
+    its hash, so one probe chain) or are equal modulo the table size
+    (``by="mod"``: the runs of neighbours the hash must scatter);
+    ``sentinel``: the last cell holds the BIG remote-cold sentinel and a
+    fifth of the lines name it."""
     rng = np.random.default_rng(seed)
+    H = walk_shape(B, L)[1]
+    if distinct:
+        A = B * L
+    if collide:
+        if by == "mod":
+            values = 7 + H * np.arange(collide)
+        else:
+            cand = np.arange(1 << 22, dtype=np.int64)
+            hashed = walk_hash(cand, H)
+            values = cand[hashed == hashed[7]][:collide]
+        A = int(values.max()) + 8
     cells = max(2, A // 4) if dup_heavy else A
     lv = rng.random((B, L)) < 0.85
     loc = (rng.random((B, L)) < 0.7) & lv
+    avail0 = rng.integers(lo, hi + 1, A).astype(np.int32)
+    slot = rng.integers(0, cells, (B, L)).astype(np.int32)
+    qty = rng.integers(1, 11, (B, L)).astype(np.int32)
+    if distinct:
+        slot = rng.permutation(A).reshape(B, L).astype(np.int32)
+        lv[:, 0] = True
+        avail0[slot[:, 0]] = qty[:, 0] - 1
+    if collide:
+        slot = values[rng.integers(0, collide, (B, L))].astype(np.int32)
+    if sentinel:
+        avail0[-1] = BIG
+        slot = np.where(rng.random((B, L)) < 0.2, A - 1, slot).astype(
+            np.int32)
     arrays = dict(
-        avail0=rng.integers(lo, hi + 1, A).astype(np.int32),
-        slot=rng.integers(0, cells, (B, L)).astype(np.int32),
-        qty=rng.integers(1, 11, (B, L)).astype(np.int32),
+        avail0=avail0,
+        slot=slot,
+        qty=qty,
         line_valid=lv,
         key_local=rng.integers(0, n_keys, B).astype(np.int32),
         cell_local=np.where(loc, rng.integers(0, n_cells, (B, L)),
@@ -67,11 +104,33 @@ def _problem(seed, B=16, L=6, A=48, n_keys=12, n_cells=40, lo=0, hi=40,
 
 CASES = [
     dict(hi=12),                                   # scarce: mostly residual
-    dict(lo=300, hi=500),                          # plump: all fast
+    dict(lo=300, hi=500),                          # plump: all fast, n_res 0
     dict(dup_heavy=True, hi=50),                   # duplicate cells
     dict(B=32, L=8, A=80, n_keys=6, n_cells=24, hi=60),
     dict(B=256, L=15, A=4096, n_keys=640, n_cells=4000, hi=30),
+    # every transaction residual, all B x L slots distinct
+    dict(B=256, L=15, n_keys=640, n_cells=4000, distinct=True, hi=12),
+    # more than one walk tile, contended across the tile boundaries
+    dict(B=1024, L=15, A=2048, n_keys=640, n_cells=4000, hi=30),
+    # 12 slots of one first probe in the walk's hash table: one chain
+    dict(B=64, L=8, n_keys=16, collide=12, hi=40),
+    # 12 slots equal modulo the table size
+    dict(B=64, L=8, n_keys=16, collide=12, by="mod", hi=40),
+    # the BIG sentinel cell beside contended ones
+    dict(B=128, L=15, A=600, n_keys=64, sentinel=True, hi=20),
 ]
+PLUMP, DISTINCT, TILES = 1, 5, 6
+
+
+def _check_case(case, n_res, B, L):
+    """What each case is for actually happened."""
+    n = int(n_res[0])
+    if case == PLUMP:
+        assert n == 0
+    if case == DISTINCT:
+        assert n == B
+    if case == TILES:
+        assert n > walk_shape(B, L)[0]
 
 
 def _equal(a, b, tag):
@@ -86,6 +145,7 @@ def test_escrow_admit_kernel_matches_plain(cuda, case):
     args = (t["avail0"], t["slot"], t["qty"], t["line_valid"])
     fast, _, _ = contention_gate(*args)
     res_idx, n_res = residual_order(fast)
+    _check_case(case, n_res, *args[1].shape)
     before = escrow_admit_cuda.launches
     # the kernel updates its avail0 in place: give it a copy
     fresh = args[0].clone()
@@ -97,6 +157,7 @@ def test_escrow_admit_kernel_matches_plain(cuda, case):
     for x, y in zip(got, want):
         assert torch.equal(x, y)
     c_ops, a_ops = ops.escrow_admit(args[0].clone(), *args[1:])
+    assert escrow_admit_cuda.launches == before + 2
     c_ref, a_ref = ref.escrow_admit_ref(*args)
     assert torch.equal(c_ops, c_ref) and torch.equal(a_ops, a_ref)
 
@@ -108,16 +169,20 @@ def test_txn_megastep_kernel_matches_plain(cuda, case):
     avail0, slot, qty, lv = args[:4]
     fast, _, _ = contention_gate(avail0, slot, qty, lv)
     res_idx, n_res = residual_order(fast)
+    _check_case(case, n_res, *slot.shape)
     gate = (fast, res_idx, n_res)
+    before = txn_megastep_cuda.launches
     # the kernel updates its avail0 in place: give it a copy
     fresh = avail0.clone()
     got = txn_megastep_cuda(fresh, slot, qty, lv, *gate, *args[4:], **kw)
     torch.cuda.synchronize()
+    assert txn_megastep_cuda.launches == before + 1
     assert got.avail.data_ptr() == fresh.data_ptr()
     plain = txn_megastep_plain(avail0, slot, qty, lv, *gate, *args[4:], **kw)
     _equal(got, plain, "kernel vs plain")
     _equal(ops.txn_megastep(avail0.clone(), *args[1:], **kw),
            MegastepOut(*ref.txn_megastep_ref(*args, **kw)), "ops vs oracle")
+    assert txn_megastep_cuda.launches == before + 2
 
 
 def _read_problem(seed, R, L, device, hide=0.5):

@@ -8,11 +8,20 @@
   weights (``convert.params_from_numpy``) and seeded prompts, though the
   port prefills the prompt prefix in one pass through the kernels' plain
   versions and the reference feeds it a token at a time;
+* with an int8 KV cache (reduced qwen1.5-32b, its shipped setting, and
+  smollm-360m) ``serve_batch`` generates the reference ``Server``'s
+  tokens, and the first decode step's logits agree with the reference's
+  token-at-a-time route: the serving prefill attends to the K/V the cache
+  returns, dequantized, while ``transformer.prefill`` with its defaults
+  stays the reference's ``prefill``, which attends to the fresh K/V;
 * a one-token batch prefills nothing; a dense prefix longer than the KV
   capacity raises; the launcher serves on the CPU when asked.
 
-Tolerance: exact for tokens, ids and the bookkeeping counters.
+Tolerance: exact for tokens, ids and the bookkeeping counters; INT8_TOL
+on float32 logits (see there).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -22,21 +31,40 @@ pytest.importorskip("jax")   # the reference side
 
 import jax  # noqa: E402
 
+import jax.numpy as jnp  # noqa: E402
+
 from repro.configs import registry as jregistry  # noqa: E402
+from repro.models import transformer as jT  # noqa: E402
+from repro.models.sharding import Rules  # noqa: E402
 from repro.runtime import serve as jserve  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.launch import serve as launch  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 from repro_torch.runtime import serve  # noqa: E402
 
 CPU = "cpu"
+# float32 logits of the one-pass prefill against the token-at-a-time route
+# differ in the order of float sums only (2.3e-06 with a float32 cache,
+# 2.5e-06 with int8 here): 1e-4 is the tolerance the model tests hold a
+# whole model's logits to. It would also catch a K/V value quantized one
+# int8 step apart (a scale, max|k| / 127, times |q|: some 1e-3 at these
+# widths), which these seeded inputs do not meet; attending to the fresh,
+# unquantized K/V instead puts the logits 0.027 apart.
+INT8_TOL = 1e-4
+INT8_ARCHS = ["qwen1.5-32b", "smollm-360m"]
 
 
-def _pair(arch, **scfg):
-    """(reference Server, port Server) on one reduced model's weights."""
+def _pair(arch, kv_dtype=None, **scfg):
+    """(reference Server, port Server) on one reduced model's weights,
+    with the KV cache in ``kv_dtype`` where given (``reduced`` makes it
+    float32)."""
     jcfg = jregistry.get_config(arch).reduced()
     cfg = registry.get_config(arch).reduced()
+    if kv_dtype:
+        jcfg = dataclasses.replace(jcfg, kv_dtype=kv_dtype)
+        cfg = dataclasses.replace(cfg, kv_dtype=kv_dtype)
     jp = jregistry.init_params(jax.random.PRNGKey(0), jcfg)
     tp = params_from_numpy(jax.device_get(jp), cfg, CPU)
     return (jserve.Server(jcfg, jp, jserve.ServeConfig(**scfg)),
@@ -91,6 +119,74 @@ def test_serve_batch_generates_the_reference_tokens(arch):
     assert [t.prefix for t in srv.timings] == \
         [max(len(p) for p in _prompts(srv.model_cfg.vocab, 4, 2, 16, seed=b))
          - 1 for b in range(2)]
+
+
+@pytest.mark.parametrize("arch", INT8_ARCHS)
+def test_int8_kv_serving_generates_the_reference_tokens(arch):
+    """4 batches of 4 prompts of 2-16 tokens, 8 new tokens, capacity 64,
+    an int8 KV cache: the same tokens on all 16 sequences, and the first
+    decode step's logits of every batch within INT8_TOL of the
+    reference's, whose prefix went through ``decode_step`` a token at a
+    time."""
+    jsrv, srv = _pair(arch, kv_dtype="int8", max_new_tokens=8, capacity=64)
+    cfg = srv.model_cfg
+    assert cfg.kv_dtype == "int8"
+    err = 0.0
+    for batch in range(4):
+        prompts = _prompts(cfg.vocab, 4, 2, 16, seed=batch)
+        want = jsrv.serve_batch([jsrv.admit(p) for p in prompts])
+        got = srv.serve_batch([srv.admit(p) for p in prompts])
+        assert [r.generated for r in got] == [r.generated for r in want]
+        P = max(len(p) for p in prompts)
+        pad = np.zeros((4, P), np.int32)
+        for i, p in enumerate(prompts):
+            pad[i, :len(p)] = p
+        jcache = jsrv._make_cache(4)
+        for t in range(P):
+            jlg, jcache = jsrv._decode(jsrv.params, jcache,
+                                       jnp.asarray(pad[:, t]))
+        toks = torch.from_numpy(pad).long()
+        _, cache = registry.make_prefill_fn(cfg, 64)(
+            srv.params, {"tokens": toks[:, :P - 1]})
+        assert cache.k.dtype == torch.int8
+        lg, _ = registry.make_decode_fn(cfg)(srv.params, cache,
+                                             toks[:, P - 1])
+        err = max(err, float(np.abs(lg.numpy() - np.asarray(jlg)).max()))
+    print(f"int8 {arch} first-step logits max_abs_err={err}")
+    assert err <= INT8_TOL, err
+    assert srv.report() == jsrv.report()
+
+
+@pytest.mark.parametrize("arch", INT8_ARCHS)
+def test_int8_kv_prefill_defaults_stay_the_reference_prefill(arch):
+    """``transformer.prefill`` without ``read_back`` attends to the fresh
+    K/V, as the reference's ``prefill``: the same logits and the same
+    int8 cache (its payload exactly, its scales within 1e-4)."""
+    cfg = dataclasses.replace(registry.get_config(arch).reduced(),
+                              kv_dtype="int8")
+    jcfg = dataclasses.replace(jregistry.get_config(arch).reduced(),
+                               kv_dtype="int8")
+    jp = jregistry.init_params(jax.random.PRNGKey(0), jcfg)
+    tp = params_from_numpy(jax.device_get(jp), cfg, CPU)
+    toks = np.random.default_rng(3).integers(0, cfg.vocab, (2, 13))
+    want, jcache = jT.prefill(jp, jnp.asarray(toks, jnp.int32), jcfg,
+                              Rules.disabled(), capacity=16)
+    got, cache = transformer.prefill(tp, torch.from_numpy(toks), cfg,
+                                     capacity=16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=1e-4)
+    assert cache.k.dtype == torch.int8
+    for g, w in ((cache.k, jcache.k), (cache.v, jcache.v)):
+        assert np.array_equal(g.numpy(), np.asarray(w))
+    for g, w in ((cache.k_scale, jcache.k_scale),
+                 (cache.v_scale, jcache.v_scale)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4)
+    # the serving prefill writes the same cache but attends to it
+    # dequantized, so its logits move off the reference prefill's
+    served, scache = transformer.prefill(tp, torch.from_numpy(toks), cfg,
+                                         capacity=16, read_back=True)
+    assert torch.equal(scache.k[0], cache.k[0])
+    assert not torch.equal(served, got)
 
 
 @pytest.mark.parametrize("arch", ["smollm-360m", "rwkv6-3b"])

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one CUDA card: TPC-C New-Order
 alone, the five-transaction mix, the anti-entropy merge of divergent
-replica snapshots, and LM serving (a dense and an RWKV-6 model).
+replica snapshots, LM serving (a dense and an RWKV-6 model), the dense
+escrow layout and the coordinated 2PC baseline.
 
     python3 chip_smoke.py
 
@@ -26,7 +27,9 @@ six CUDA kernels of the port from ``src/repro_torch/kernels/csrc`` (one
   5. the same escrow run through the plain path on the card (admission and
      effects "scan"), which must end bit-equal to phase 4;
   6. a small run through the kernels on the card against the plain path
-     on the CPU, bit-equal: New-Order alone and the five-transaction mix;
+     on the CPU, bit-equal: New-Order alone and the five-transaction mix,
+     the dense escrow layout through each kernel, and the strict 2PC
+     baseline through the escrow_admit kernel;
   7. the mix in the merge regime (New-Order, Payment, Order-Status through
      the ramp_read kernel, Stock-Level, Delivery), then the audit, whose
      twelve criteria now see every money column move;
@@ -63,7 +66,24 @@ six CUDA kernels of the port from ``src/repro_torch/kernels/csrc`` (one
  13. both reduced configurations (float32) through ``Server`` with the
      kernels on the card and with the plain path on the CPU, on the same
      weights and seeded prompts: the generated tokens equal, the first
-     decode step's logits within 1e-4 (TF32 off).
+     decode step's logits within 1e-4 (TF32 off);
+ 14. dense escrow (``escrow_layout="dense"``: a share of every one of the
+     6.4 M cells) on phase 4's stream, through the megastep kernel and
+     through the escrow_admit kernel, bit-equal to each other and to the
+     sparse layout with a full hot set (K = 6.4 M), then the strict audit;
+     committed txn/s and escrow bytes a device beside phase 4's sparse
+     run; both kernels against their plain versions on the dense layout's
+     problem after the run;
+ 15. the coordinated baseline: ``plan_engine(stock_invariant="serial")``
+     returns the strict ``TwoPCEngine``, whose closed loop replays phase
+     4's stream through the escrow_admit kernel against the global stock,
+     then the strict audit; committed txn/s without and with the D-2PC LAN
+     commitment latency of ``txn/latency.py`` (a modeled figure) charged
+     per conflicting round, and escrow's ratio over it; on one shard it
+     must end bit-equal to phase 14's dense run. The non-strict
+     ``TwoPCEngine`` over phase 3's stream ends in phase 3's state, and
+     its ``read_step`` on phase 7's final state equals
+     ``Engine.order_status_step`` (through the ramp_read kernel).
 
 The deployment is TPC-C at the specification's per-warehouse cardinalities
 (TPC-C standard specification, clause 4.3.3.1: 10 districts, 3000 customers
@@ -79,7 +99,7 @@ the launcher's seeded prompts of 2-512 tokens, 32 new tokens each and
 SmolLM's context of 2048 as the KV capacity.
 
 Launch counters are set to 0 just before each main path (phases 3-4, 7,
-8, 10, 11 and 12) and read just after. The second-to-last line of output is the
+8, 10, 11, 12, 14 and 15) and read just after. The second-to-last line of output is the
 kernels' JSON record; the last line is the device record. Any failure exits
 non-zero; so does a machine without a CUDA device.
 """
@@ -301,15 +321,17 @@ def walk_costs(timing, first, hard):
 
 
 def escrow_run(scale, admission, effects, device=None, batch=BATCH,
-               n_batches=N_BATCHES, audit=True, mix=None):
+               n_batches=N_BATCHES, audit=True, mix=None, **engine_kw):
     """The escrow main path (``mix``: the run_loop knobs of the
-    five-transaction mix). Returns (state, escrow, stats, audit report)."""
+    five-transaction mix; ``engine_kw``: the layout's, ``escrow_layout``
+    and ``hot_items``). Returns (state, escrow, stats, audit report, with
+    the escrow-coverage check it ran)."""
     from repro_torch.txn import assert_audit, init_state, run_loop
     from repro_torch.txn.engine import single_host_engine
 
     eng = single_host_engine(scale, stock_invariant="strict",
                              admission=admission, effects=effects,
-                             device=device)
+                             device=device, **engine_kw)
     state = init_state(scale, seed=SEED, device=eng.device)
     state.s_quantity.mul_(STOCK_MULTIPLIER)
     q0 = state.s_quantity.clone()
@@ -322,8 +344,10 @@ def escrow_run(scale, admission, effects, device=None, batch=BATCH,
     if audit:
         t0 = time.perf_counter()
         rep = assert_audit(state, escrow=esc, initial_stock=q0,
-                           strict_stock=True).describe()
-        rep += f" in {time.perf_counter() - t0:.1f} s"
+                           strict_stock=True)
+        covers = [k for k in rep.checks if k.startswith("escrow_covers")]
+        rep = (f"{rep.describe()} ({', '.join(covers)}) in "
+               f"{time.perf_counter() - t0:.1f} s")
     return state, esc, st, rep
 
 
@@ -919,6 +943,222 @@ def card_against_cpu():
                                  f"the CPU's")
 
 
+def small_dense_and_2pc(small):
+    """Phase 6's second half: the dense escrow layout through each kernel
+    and the strict 2PC baseline through the escrow_admit kernel, on the
+    card, against the plain path on the CPU, bit for bit. The 2PC run
+    starts from the uninflated stock, so that its strict floor aborts."""
+    from repro_torch.txn import TwoPCEngine, init_state, run_closed_loop_2pc
+
+    cpu = lambda t: type(t)(*(x.cpu() for x in t))
+    counts = lambda m: (m.neworders, m.aborts, m.cold_rejects, m.refreshes,
+                        m.anti_entropy_rounds)
+    sc, ec, mc, _ = escrow_run(small, "scan", "scan", device="cpu", batch=16,
+                               n_batches=6, audit=False,
+                               escrow_layout="dense")
+    for effects in ("fused", "scan"):
+        sk, ek, mk, _ = escrow_run(small, "kernel", effects, device="cuda",
+                                   batch=16, n_batches=6,
+                                   escrow_layout="dense")
+        bad = _same(cpu(sk), sc) + _same(cpu(ek), ec)
+        if bad or counts(mk) != counts(mc):
+            raise AssertionError(f"small dense run (effects={effects}): "
+                                 f"card != CPU plain path: {bad} "
+                                 f"{counts(mk)} {counts(mc)}")
+        print(f"small run (dense escrow, effects={effects}): card kernels "
+              f"== CPU plain path, counts {counts(mk)}")
+    runs = []
+    for dev in ("cuda", "cpu"):
+        two = TwoPCEngine(small, strict_stock=True, device=dev)
+        runs.append(run_closed_loop_2pc(
+            two, init_state(small, seed=SEED, device=dev),
+            batch_per_shard=16, n_batches=6, remote_frac=REMOTE_FRAC,
+            seed=SEED, item_skew=ITEM_SKEW))
+    (sk, mk), (sc, mc) = runs
+    bad = _same(cpu(sk), sc)
+    if bad or (mk.committed, mk.aborted) != (mc.committed, mc.aborted) \
+            or mk.aborted <= 0:
+        raise AssertionError(f"small strict 2PC run: card != CPU plain "
+                             f"path, or nothing aborted: {bad} "
+                             f"{(mk.committed, mk.aborted)} "
+                             f"{(mc.committed, mc.aborted)}")
+    print(f"small run (strict 2PC): card kernels == CPU plain path, "
+          f"committed {mk.committed}, aborted {mk.aborted}")
+
+
+def dense_escrow(scale, eng, sparse):
+    """Phase 14: the dense layout on phase 4's stream, through the
+    megastep kernel and through the escrow_admit kernel, launch counts
+    from 0 before each; the sparse layout with a full hot set; the strict
+    audit; both kernels on the dense problem after the run. ``sparse`` is
+    phase 4's (megastep stats, escrow_admit stats). Returns (the dense
+    megastep run's state and stats, each kernel's launches, the timing
+    row)."""
+    import torch
+
+    from repro_torch.kernels.escrow_admit import escrow_admit_cuda
+    from repro_torch.kernels.txn_megastep import txn_megastep_cuda
+    from repro_torch.txn import tpcc
+
+    runs, launches = {}, {}
+    for effects in ("fused", "scan"):
+        escrow_admit_cuda.launches = 0
+        txn_megastep_cuda.launches = 0
+        runs[effects] = escrow_run(scale, "kernel", effects,
+                                   audit=effects == "fused",
+                                   escrow_layout="dense")
+        launches[effects] = (escrow_admit_cuda.launches,
+                             txn_megastep_cuda.launches)
+    s_full, e_full, m_full, _ = escrow_run(scale, "kernel", "fused",
+                                           audit=False,
+                                           hot_items=scale.n_items)
+    (s_d, e_d, m_d, rep), (s_a, e_a, m_a, _) = runs["fused"], runs["scan"]
+    fused_b1, fused_b2 = launches["fused"]
+    scan_b1, scan_b2 = launches["scan"]
+    if (fused_b1, fused_b2, scan_b1, scan_b2) != (0, N_BATCHES + 1,
+                                                  N_BATCHES + 1, 0):
+        raise AssertionError(f"dense runs missed their kernel: {launches}")
+    counts = lambda m: (m.neworders, m.aborts, m.cold_rejects, m.refreshes,
+                        m.anti_entropy_rounds)
+    bad = _same(s_d, s_a) + _same(e_d, e_a) + _same(s_d, s_full)
+    bad += [f"escrow {f}" for f, x, y in zip(e_d._fields, e_d[:2], e_full[1:])
+            if not torch.equal(x.reshape(-1), y.reshape(-1))]
+    if bad or len({counts(m) for m in (m_d, m_a, m_full)}) != 1:
+        raise AssertionError(f"dense escrow: megastep != escrow_admit != "
+                             f"full hot set: {bad} {counts(m_d)} "
+                             f"{counts(m_a)} {counts(m_full)}")
+    if "escrow_covers_stock" not in rep or m_d.aborts <= 0:
+        raise AssertionError("the dense audit did not cover the stock, or "
+                             "nothing aborted")
+    sizes = tpcc.escrow_layout_bytes(scale, tpcc.default_hot_items(scale))
+    print(f"dense escrow (megastep kernel): {m_d.neworders} committed, "
+          f"{m_d.aborts} aborts, {m_d.cold_rejects} cold rejects, "
+          f"{m_d.throughput:,.0f} txn/s; txn_megastep launches={fused_b2};"
+          f" {rep}")
+    print(f"dense escrow (escrow_admit kernel): {m_a.neworders} committed, "
+          f"{m_a.throughput:,.0f} txn/s; escrow_admit launches={scan_b1}")
+    print(f"sparse escrow, full hot set (K={scale.n_warehouses * scale.n_items:,}): "
+          f"{m_full.throughput:,.0f} txn/s; bit-equal to dense (state, "
+          f"spent, shares, counts {counts(m_d)})")
+    print(f"escrow layouts: phase 4's sparse (K={sizes['hot_cells']:,}) "
+          f"{sparse[0].throughput:,.0f} txn/s through the megastep, "
+          f"{sparse[1].throughput:,.0f} through escrow_admit, "
+          f"{sizes['sparse_bytes_per_device']:,} bytes of escrow a device; "
+          f"dense {m_d.throughput:,.0f} and {m_a.throughput:,.0f} txn/s, "
+          f"{sizes['dense_bytes_per_device']:,} bytes a device")
+    # the problem the dense run's next batch meets: 6.4 M cells of avail
+    batch = main_path_batch(eng, N_BATCHES)
+    timing = check_and_time("dense layout after the run", *tpcc.megastep_args(
+        s_d, batch, scale, (e_d.shares[0] - e_d.spent[0]).reshape(-1),
+        batch.supply_w * scale.n_items + batch.i_id,
+        tpcc.order_line_valid(batch), batch.ts, 0, scale.n_warehouses))
+    return s_d, m_d, {"escrow_admit": scan_b1,
+                      "txn_megastep": fused_b2}, timing
+
+
+def coordinated_baseline(scale, merge, s_merge, s_mix, s_dense, m_dense,
+                         best_escrow):
+    """Phase 15: the strict 2PC baseline on phase 4's stream (launch counts
+    from 0), its audit and throughputs without and with the modeled
+    commitment latency; the non-strict baseline against phase 3's
+    ``s_merge``; ``read_step`` on phase 7's ``s_mix``. Returns each
+    kernel's launches."""
+    import numpy as np
+
+    from repro_torch.kernels.escrow_admit import escrow_admit_cuda
+    from repro_torch.kernels.ramp_read import ramp_read_cuda
+    from repro_torch.txn import (TwoPCEngine, assert_audit, init_state,
+                                 plan_engine, run_closed_loop_2pc, tpcc)
+    from repro_torch.txn.drivers import generate_mix_batches
+    from repro_torch.txn.latency import DelayModel, simulate
+    from repro_torch.txn.twopc import _conflict_rounds
+
+    two = plan_engine(scale, stock_invariant="serial")
+    if not (isinstance(two, TwoPCEngine) and two.strict_stock):
+        raise AssertionError(f"plan_engine(serial) returned {two!r}")
+    lat = simulate("D-2PC", DelayModel("lan"), 2, trials=400)
+    commit_s = lat.mean_latency_ms / 1e3
+    state = init_state(scale, seed=SEED)
+    state.s_quantity.mul_(STOCK_MULTIPLIER)
+    q0 = state.s_quantity.clone()
+    escrow_admit_cuda.launches = 0
+    s2, st2 = run_closed_loop_2pc(
+        two, state, batch_per_shard=BATCH, n_batches=N_BATCHES,
+        remote_frac=REMOTE_FRAC, seed=SEED, item_skew=ITEM_SKEW)
+    b1 = escrow_admit_cuda.launches
+    del state
+    t0 = time.perf_counter()
+    rep = assert_audit(s2, initial_stock=q0, strict_stock=True).describe()
+    rep += f" in {time.perf_counter() - t0:.1f} s"
+    # on one shard the escrow's one replica spends from the whole pool
+    # between refreshes: the same transactions commit, in the same state
+    bad = [f"dense {f}" for f in _same(s2, s_dense)]
+    if bad or b1 != N_BATCHES + 1:
+        raise AssertionError(f"strict 2PC: runs differ {bad}, escrow_admit "
+                             f"launches={b1}")
+    if st2.committed < m_dense.neworders:
+        raise AssertionError("2PC committed less than escrow on the "
+                             "identical stream")
+    # the charge run_closed_loop_2pc(commit_latency_s=commit_s) would add,
+    # counted on the host from the same stream: commit_s x rounds
+    rng = np.random.default_rng(SEED)
+    rounds = sum(_conflict_rounds(tpcc.generate_neworder(
+        rng, scale, BATCH, remote_frac=REMOTE_FRAC, ts0=i * BATCH,
+        item_skew=ITEM_SKEW, device="cpu"), scale.districts)
+        for i in range(N_BATCHES))
+    wall_lat = st2.wall_seconds + commit_s * rounds
+    tput_lat = st2.committed / wall_lat
+    print(f"strict 2PC (plan_engine(serial), escrow_admit kernel): "
+          f"{st2.committed} committed, {st2.aborted} aborted (dense escrow: "
+          f"{m_dense.neworders}; bit-equal states); escrow_admit "
+          f"launches={b1}; {rep}")
+    print(f"modeled commitment latency (a model, not a measurement): D-2PC "
+          f"over a LAN, 2 servers, latency.simulate with 400 trials: mean "
+          f"{lat.mean_latency_ms} ms, p95 {lat.p95_latency_ms} ms; "
+          f"{rounds} conflicting rounds in {N_BATCHES} batches")
+    print(f"strict 2PC throughput: {st2.throughput:,.0f} txn/s on the "
+          f"card's wall time alone ({st2.wall_seconds:.4f} s); "
+          f"{tput_lat:,.2f} txn/s with the modeled latency charged to the "
+          f"same run ({wall_lat:.3f} s); best escrow run of this call "
+          f"{best_escrow:,.0f} txn/s: {best_escrow / tput_lat:,.1f}x over "
+          f"2PC with the latency, {best_escrow / st2.throughput:.2f}x "
+          f"without")
+
+    state, st = run_closed_loop_2pc(
+        TwoPCEngine(scale), init_state(scale, seed=SEED),
+        batch_per_shard=BATCH, n_batches=N_BATCHES, remote_frac=REMOTE_FRAC,
+        seed=SEED)
+    bad = _same(state, s_merge)
+    print(f"non-strict 2PC over phase 3's stream: {st.committed} committed "
+          f"in the timed batches, {st.throughput:,.0f} txn/s; state equal to "
+          f"phase 3's (s_ytd, d_next_o_id and every other table): "
+          f"{not bad}")
+    if bad:
+        raise AssertionError(f"non-strict 2PC != merge regime: {bad}")
+    del state
+
+    os_batch = generate_mix_batches(
+        merge, batch_per_shard=BATCH, n_batches=1, remote_frac=REMOTE_FRAC,
+        read_frac=READ_FRAC, seed=SEED)[2][0]
+    wl, d = os_batch.w.long(), os_batch.d.long()
+    OC = s_mix.o_c_id.shape[-1]
+    latest = ((s_mix.d_next_o_id[wl, d] - 1) % OC).long()
+    owners = os_batch._replace(c=s_mix.o_c_id[wl, d, latest])
+    # on one shard read_step and order_status_step are one body (the lock
+    # grant and the release vote are the identity): what this shows on the
+    # card is that 2PC's read path launches ramp_read
+    ramp_read_cuda.launches = 0
+    got = two.read_step(s_mix, owners)
+    reads = ramp_read_cuda.launches
+    bad = _same(got, merge.order_status_step(s_mix, owners))
+    print(f"2PC read_step on phase 7's state: {int(got.found.sum())} of "
+          f"{len(owners.w)} found, equal to Engine.order_status_step: "
+          f"{not bad}; ramp_read launches={reads}")
+    if bad or reads != 1 or int(got.found.sum()) <= 0:
+        raise AssertionError(f"2PC read_step != order_status_step: {bad}")
+    return {"escrow_admit": b1, "ramp_read": reads}
+
+
 def main() -> int:
     import torch
 
@@ -985,7 +1225,7 @@ def main() -> int:
     print(f"merge: {st.neworders} New-Orders committed, "
           f"{st.throughput:,.0f} txn/s, {st.anti_entropy_rounds} "
           f"anti-entropy rounds; {rep} in {time.perf_counter() - t0:.1f} s")
-    del state
+    s_merge = state    # phase 15's non-strict 2PC must end here
 
     s_fused, e_fused, m_fused, rep = escrow_run(scale, "kernel", "fused")
     mega_launches = txn_megastep_cuda.launches
@@ -1058,6 +1298,7 @@ def main() -> int:
                                  f"{mix_counts(mc)}")
         print(f"small run ({tag}): card kernels == CPU plain path, counts "
               f"{mix_counts(mk)}")
+    small_dense_and_2pc(small)
 
     # -- phase 7: the mix in the merge regime, launch counts from 0 ----------
     ramp_read_cuda.launches = 0
@@ -1094,6 +1335,8 @@ def main() -> int:
                                     ramp_read_cuda.launches) < N_BATCHES:
         raise AssertionError("the escrow mix observed a fracture or missed "
                              "a kernel")
+    launches["txn_megastep"] += txn_megastep_cuda.launches
+    launches["ramp_read"] += ramp_read_cuda.launches
 
     # -- phase 9: the ramp_read kernel on problems (a) and (b) ---------------
     read_a, read_a_hidden, read_b = ramp_read_problems(merge, state)
@@ -1103,7 +1346,7 @@ def main() -> int:
     # -- phase 10: replica anti-entropy, launch counts from 0 ----------------
     timing["lattice_merge"] = anti_entropy(state)
     launches["lattice_merge"] = timing["lattice_merge"]["launches"]
-    del state
+    s_mix = state      # phase 15's 2PC read_step reads it
     torch.cuda.empty_cache()
 
     # -- phase 11: dense serving, launch counts from 0 -----------------------
@@ -1126,6 +1369,20 @@ def main() -> int:
 
     # -- phase 13: small serving runs, card kernels vs CPU plain path --------
     card_against_cpu()
+
+    # -- phase 14: dense escrow on phase 4's stream, launch counts from 0 ----
+    s_dense, m_dense, dense_launches, _ = dense_escrow(scale, eng,
+                                                       (m_fused, m_adm))
+    for k, n in dense_launches.items():
+        launches[k] += n
+
+    # -- phase 15: the coordinated baseline, launch counts from 0 ------------
+    best = max(m.throughput for m in (m_fused, m_adm, m_dense))
+    for k, n in coordinated_baseline(scale, merge, s_merge, s_mix, s_dense,
+                                     m_dense, best).items():
+        launches[k] += n
+    del s_merge, s_mix, s_dense
+    print(f"launches, every main path: {json.dumps(launches)}")
 
     for k in ("ramp_read", "lattice_merge", "flash_attention", "rwkv6_scan"):
         parity_err[k] = 0.0

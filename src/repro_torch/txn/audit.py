@@ -8,9 +8,10 @@ condition from the table arrays —
   * delivery flow:  carrier/delivered-line/balance bookkeeping;
   * strict stock:   s_quantity >= 0 everywhere AND s_quantity + s_ytd ==
                     initial stock per (warehouse, item) cell;
-  * escrow (sparse HotSetEscrow): Σ_replicas (shares - spent) ==
-                    s_quantity at every hot cell, never negative, and a
-                    sorted-unique key table.
+  * escrow:         Σ_replicas (shares - spent) never negative, and equal
+                    to s_quantity at every hot cell with a sorted-unique
+                    key table (sparse HotSetEscrow) or at every cell
+                    (dense EscrowCounter).
 """
 
 from __future__ import annotations
@@ -37,9 +38,9 @@ class AuditReport:
 
 def audit_tpcc(state, *, escrow=None, initial_stock=None,
                strict_stock: bool = False, atol: float = 1e-2) -> AuditReport:
-    """Audit a drained state. ``escrow`` (the final HotSetEscrow),
-    ``initial_stock`` (the pre-run ``s_quantity``) and ``strict_stock``
-    enable the escrow-regime conditions."""
+    """Audit a drained state. ``escrow`` (the final HotSetEscrow or
+    EscrowCounter), ``initial_stock`` (the pre-run ``s_quantity``) and
+    ``strict_stock`` enable the escrow-regime conditions."""
     from repro_torch.convert import state_to_numpy
 
     s = state_to_numpy(state)
@@ -86,12 +87,19 @@ def audit_tpcc(state, *, escrow=None, initial_stock=None,
         remaining = e.shares.sum(0).astype(np.int64) \
             - e.spent.sum(0).astype(np.int64)
         checks["escrow_remaining_nonnegative"] = bool(np.all(remaining >= 0))
-        keys = np.asarray(e.keys, np.int64)
-        checks["hot_keys_sorted_unique"] = bool(
-            np.all(np.diff(keys) > 0)) if keys.size > 1 else True
-        q_hot = s.s_quantity.reshape(-1).astype(np.int64)[keys]
-        checks["escrow_covers_hot_stock"] = bool(
-            np.array_equal(remaining, q_hot))
+        if hasattr(e, "keys"):
+            # sparse layout: after the final drain the escrow view agrees
+            # with the owners' stock on every hot cell
+            keys = np.asarray(e.keys, np.int64)
+            checks["hot_keys_sorted_unique"] = bool(
+                np.all(np.diff(keys) > 0)) if keys.size > 1 else True
+            q_hot = s.s_quantity.reshape(-1).astype(np.int64)[keys]
+            checks["escrow_covers_hot_stock"] = bool(
+                np.array_equal(remaining, q_hot))
+        else:
+            # dense layout: the same law over the whole keyspace
+            checks["escrow_covers_stock"] = bool(
+                np.array_equal(remaining, s.s_quantity.astype(np.int64)))
 
     failures = [k for k, v in checks.items() if not v]
     return AuditReport(not failures, failures, checks)

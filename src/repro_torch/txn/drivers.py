@@ -10,7 +10,8 @@
   Payment, the two reads, Delivery, then the drain when a window is full;
 * **merge regime** — New-Order with restock, outboxes accumulated in a
   device window and drained by anti-entropy every ``merge_every`` batches;
-* **escrow regime** — strict New-Order against the hot-set shares, one
+* **escrow regime** — strict New-Order against the escrow shares (either
+  layout: the engine's ``HotSetEscrow`` or dense ``EscrowCounter``), one
   strict drain per window, and the share refresh every ``refresh_every``
   drains or, with ``refresh_abort_rate``, as soon as the escrow abort rate
   since the last refresh crosses it (one host read per window);
@@ -210,7 +211,9 @@ def run_loop(engine, state: TPCCState, esc=None, *,
 
     Returns ``(state, escrow-or-None, MixStats)``; ``stats.neworders``
     counts COMMITTED New-Orders (escrow aborts in ``stats.aborts``,
-    owner-side cold rejections in ``stats.cold_rejects``).
+    owner-side cold rejections of the sparse layout in
+    ``stats.cold_rejects``, 0 in the dense layout, which has no cold
+    tier).
     """
     asked = dict(fused=fused, retry_cap=retry_cap > 0,
                  liveness=liveness is not None, obs=obs is not None)

@@ -8,13 +8,18 @@ The port of ``repro.txn.engine`` for one device (``n_shards == 1``):
 * **anti-entropy** — :meth:`Engine.anti_entropy` / :meth:`Engine.drain_strict`
   apply the outbox entries each owner holds;
 * **escrow refresh** — :meth:`Engine.refresh_escrow`, the regime's amortized
-  coordination point, re-partitions the hot cells' stock into shares;
+  coordination point, re-partitions the stock into shares (the hot cells'
+  in the sparse layout, every cell's in the dense one);
 * **the rest of the mix** — :meth:`Engine.payment_step`,
   :meth:`Engine.delivery_step` and the RAMP reads
   :meth:`Engine.order_status_step` and :meth:`Engine.stock_level_step`.
 
 With one shard the reference's all-gather and ``psum`` are the identity;
 the bodies below are written so and refuse ``n_shards > 1``.
+
+:func:`plan_engine` is the plan-driven factory: it returns the synchronous
+2PC baseline (``txn.twopc.TwoPCEngine``) where the plan demands
+coordination, and :class:`Engine` elsewhere.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import dataclasses
 import torch
 
 from repro_torch.core.analyzer import Strategy
-from repro_torch.core.lattice import HotSetEscrow
+from repro_torch.core.lattice import EscrowCounter, HotSetEscrow
 from repro_torch.core.planner import CoordClass, plan as plan_specs
 from repro_torch.device import resolve_device
 
@@ -47,10 +52,16 @@ class Engine:
     At construction the engine runs ``core.planner.plan()`` over the TPC-C
     state specs; the verdict for STOCK.S_QUANTITY selects the regime:
     COORDINATION_FREE -> merge (outbox + anti-entropy), ESCROW -> strict
-    stock over the sparse hot-set escrow, COORDINATION_REQUIRED -> refused.
+    stock over escrow shares, COORDINATION_REQUIRED -> refused
+    (:func:`plan_engine` falls back to the 2PC baseline).
 
-    ``admission`` ("auto" | "scan" | "kernel") and ``effects`` ("fused" |
-    "scan") pick the escrow regime's strategies, with bit-identical results.
+    ``escrow_layout`` picks the ESCROW regime's state: "sparse" (default),
+    a ``HotSetEscrow`` over the top-K contended cells with the cold tail
+    owner-routed through the outbox; "dense", the ``[R, W, I]``
+    ``EscrowCounter`` (every replica a share of every cell), the
+    comparison baseline. ``admission`` ("auto" | "scan" | "kernel") and
+    ``effects`` ("fused" | "scan") pick the escrow regime's strategies
+    (both layouts), with bit-identical results.
     ``device=None`` means the CUDA card and raises when there is none.
     """
 
@@ -71,21 +82,18 @@ class Engine:
         self.plan = plan_specs(tpcc_state_specs(self.stock_invariant))
         self.stock_regime = self.plan.entry("stock.s_quantity").coord_class
         if self.stock_regime is CoordClass.REQUIRED:
-            raise NotImplementedError(
+            raise ValueError(
                 "planner classified stock.s_quantity as "
-                "COORDINATION_REQUIRED; the synchronous 2PC fallback "
-                "(stock_invariant='serial') is ROADMAP Queue A item 7")
+                "COORDINATION_REQUIRED — this coordination-avoiding engine "
+                "cannot satisfy it; use plan_engine() to fall back to the "
+                "synchronous TwoPCEngine baseline")
         if (self.plan.entry("district.d_next_o_id").strategy
                 is not Strategy.DEFERRED_ASSIGNMENT):
             raise RuntimeError("district.d_next_o_id must plan as deferred "
                                "assignment")
         self._restock = self.stock_regime is CoordClass.FREE
 
-        if self.escrow_layout == "dense":
-            raise NotImplementedError(
-                "the dense escrow layout (EscrowCounter) is ROADMAP Queue A "
-                "item 1; use escrow_layout='sparse'")
-        if self.escrow_layout != "sparse":
+        if self.escrow_layout not in ("sparse", "dense"):
             raise ValueError(f"unknown escrow_layout {self.escrow_layout!r};"
                              f" choose 'sparse' or 'dense'")
         if self.admission not in tpcc.ADMISSION_MODES:
@@ -153,53 +161,73 @@ class Engine:
 
     # -- escrow regime (plan-selected; paper §8) ------------------------------
 
-    def init_escrow(self, state: TPCCState) -> HotSetEscrow:
-        """Shares over the K hot cells partitioning their current stock."""
+    def init_escrow(self, state: TPCCState):
+        """Shares partitioning the current stock: a ``HotSetEscrow`` over
+        the K hot cells (sparse layout) or the ``[R, W, I]``
+        ``EscrowCounter`` (dense layout)."""
         self._require_escrow()
-        budgets = state.s_quantity.reshape(-1)[self.hot_keys.long()]
-        return HotSetEscrow.make(self.n_shards, self.hot_keys, budgets)
+        if self.escrow_layout == "sparse":
+            budgets = state.s_quantity.reshape(-1)[self.hot_keys.long()]
+            return HotSetEscrow.make(self.n_shards, self.hot_keys, budgets)
+        shares = tpcc.make_escrow_shares(state.s_quantity, self.n_shards)
+        return EscrowCounter(shares, torch.zeros_like(shares))
 
-    def neworder_escrow_step(self, state: TPCCState, esc: HotSetEscrow,
-                             batch: NewOrderBatch):
+    def neworder_escrow_step(self, state: TPCCState, esc, batch: NewOrderBatch):
         """Strict-stock New-Order with local escrow admission. Returns
         (state, esc, outbox, totals, committed mask)."""
         self._require_escrow()
-        state, spent, delta, total, ok = tpcc.apply_neworder_escrow_sparse(
-            state, esc.keys, esc.shares[0], esc.spent[0], batch, self.scale,
-            w_lo=0, w_hi=self.w_per_shard, replica=0,
-            num_replicas=self.n_shards, admission=self.admission,
-            effects=self.effects)
+        kw = dict(w_lo=0, w_hi=self.w_per_shard, replica=0,
+                  num_replicas=self.n_shards, admission=self.admission,
+                  effects=self.effects)
+        if self.escrow_layout == "sparse":
+            state, spent, delta, total, ok = \
+                tpcc.apply_neworder_escrow_sparse(
+                    state, esc.keys, esc.shares[0], esc.spent[0], batch,
+                    self.scale, **kw)
+        else:
+            state, spent, delta, total, ok = tpcc.apply_neworder_escrow(
+                state, esc.shares[0], esc.spent[0], batch, self.scale, **kw)
         return state, esc._replace(spent=spent[None]), delta, total, ok
 
-    def refresh_escrow(self, state: TPCCState, esc: HotSetEscrow,
-                       alive=None) -> HotSetEscrow:
-        """Re-partition the hot cells' post-drain stock into fresh shares.
+    def refresh_escrow(self, state: TPCCState, esc, alive=None):
+        """Re-partition the post-drain stock into fresh shares (the hot
+        cells' in the sparse layout, every cell's in the dense one).
         ``alive`` ([n_shards] mask, default all live) gives dead replicas'
         headroom to the survivors."""
         self._require_escrow()
         if alive is None:
             alive = torch.ones((self.n_shards,), dtype=torch.int32,
                                device=self.device)
-        return gather_and_refresh_hot_shares(
-            state, esc.keys, 0, self.n_shards, self.scale.n_items, 0,
-            self.w_per_shard, alive=alive)
+        if self.escrow_layout == "sparse":
+            return gather_and_refresh_hot_shares(
+                state, esc.keys, 0, self.n_shards, self.scale.n_items, 0,
+                self.w_per_shard, alive=alive)
+        return gather_and_refresh_shares(state, 0, self.n_shards,
+                                         alive=alive)
 
     def drain_strict(self, state: TPCCState, outbox: StockDelta
                      ) -> tuple[TPCCState, torch.Tensor]:
-        """Strict anti-entropy: hot entries apply unconditionally, cold
-        entries under the owner's per-cell all-or-nothing admission.
-        Returns (state, cold-reject counts [n_shards])."""
+        """Strict anti-entropy, without restock. Sparse layout: hot entries
+        apply unconditionally, cold entries under the owner's per-cell
+        all-or-nothing admission. Dense layout: every entry was admitted
+        against a share upstream and applies; it has no cold tier. Returns
+        (state, cold-reject counts [n_shards])."""
         self._require_escrow()
-        return gather_and_apply_outbox_strict(
-            state, outbox, self.hot_keys, 0, self.w_per_shard,
-            self.scale.n_items, self.n_shards)
+        if self.escrow_layout == "sparse":
+            return gather_and_apply_outbox_strict(
+                state, outbox, self.hot_keys, 0, self.w_per_shard,
+                self.scale.n_items, self.n_shards)
+        state = gather_and_apply_outbox(state, outbox, 0, self.w_per_shard,
+                                        self.n_shards, restock=False)
+        return state, torch.zeros((1,), dtype=torch.int32,
+                                  device=self.device)
 
     def escrow_bytes_per_device(self) -> dict:
         """Per-device escrow residency of this engine's layout vs dense."""
         self._require_escrow()
         out = tpcc.escrow_layout_bytes(self.scale, self.hot_items)
         out["layout"] = self.escrow_layout
-        out["bytes_per_device"] = out["sparse_bytes_per_device"]
+        out["bytes_per_device"] = out[f"{self.escrow_layout}_bytes_per_device"]
         return out
 
 
@@ -221,6 +249,17 @@ def gather_and_apply_outbox(state: TPCCState, outbox: StockDelta, w_lo: int,
     dst, i_id, qty, own = _owned(outbox, w_lo, w_per_shard, n_shards)
     return tpcc.apply_stock_updates(state, dst - w_lo, i_id, qty, own,
                                     torch.ones_like(own), restock=restock)
+
+
+def gather_and_refresh_shares(state: TPCCState, replica: int,
+                              n_shards: int, alive=None) -> EscrowCounter:
+    """The dense share-refresh body: the owners' current stock (gathered
+    across shards: one shard holds it all) re-partitioned into this
+    replica's fresh ``[1, W, I]`` share slot; spent resets to zero."""
+    _one_shard(n_shards)
+    share = tpcc.escrow_share_for(state.s_quantity, replica, n_shards,
+                                  alive=alive)
+    return EscrowCounter(share[None], torch.zeros_like(share)[None])
 
 
 def gather_and_apply_outbox_strict(state: TPCCState, outbox: StockDelta,
@@ -261,3 +300,22 @@ def single_host_engine(scale: TPCCScale, stock_invariant: str = "restock",
     otherwise (``device="cpu"`` runs the plain versions on the CPU)."""
     return Engine(scale, stock_invariant=stock_invariant, device=device,
                   **engine_kwargs)
+
+
+def plan_engine(scale: TPCCScale, stock_invariant: str = "restock",
+                device=None, n_shards: int = 1, **engine_kwargs):
+    """Plan-driven engine selection: run the analyzer over the declared
+    TPC-C state specs and return :class:`Engine` when every element is
+    COORDINATION_FREE or ESCROW, or the synchronous strict-stock
+    ``txn.twopc.TwoPCEngine`` (with ``.plan`` set) when the plan demands
+    COORDINATION_REQUIRED: coordination is the fallback, never the
+    default."""
+    cplan = plan_specs(tpcc_state_specs(stock_invariant))
+    if cplan.entry("stock.s_quantity").coord_class is CoordClass.REQUIRED:
+        from .twopc import TwoPCEngine
+        eng = TwoPCEngine(scale, strict_stock=True, device=device,
+                          n_shards=n_shards)
+        eng.plan = cplan
+        return eng
+    return Engine(scale, stock_invariant=stock_invariant, device=device,
+                  n_shards=n_shards, **engine_kwargs)

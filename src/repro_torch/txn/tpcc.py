@@ -458,6 +458,17 @@ def escrow_share_for(s_quantity, replica, num_replicas: int, alive=None):
     return alive_i[r.long()] * share
 
 
+def make_escrow_shares(s_quantity, num_replicas: int) -> Tensor:
+    """Partition every stock cell's quantity into per-replica shares: an
+    int32 ``[R, W, I]`` tensor with ``shares.sum(0) == s_quantity``
+    exactly (the dense layout's ``EscrowCounter`` shares)."""
+    q = torch.as_tensor(s_quantity).to(torch.int32)
+    slots = torch.arange(num_replicas, dtype=torch.int32,
+                         device=q.device).reshape((num_replicas,)
+                                                  + (1,) * q.dim())
+    return escrow_share_for(q, slots, num_replicas)
+
+
 ADMISSION_MODES = ("auto", "scan", "kernel")
 
 # the "auto" fallback when the cut-over is not measured: below this batch
@@ -557,6 +568,48 @@ def admit_fcfs(avail0: Tensor, slot: Tensor, qty: Tensor, line_valid: Tensor,
     if resolve_admission(admission, B, L, slot.device) == "kernel":
         return ops.escrow_admit(avail0, slot, qty, line_valid)
     return ref.escrow_admit_ref(avail0, slot, qty, line_valid)
+
+
+def apply_neworder_escrow(state: TPCCState, shares: Tensor, spent: Tensor,
+                          batch: NewOrderBatch, scale: TPCCScale,
+                          w_lo: int = 0, w_hi: int | None = None,
+                          replica: int = 0, num_replicas: int = 1,
+                          admission: str = "scan", effects: str = "scan"
+                          ) -> tuple[TPCCState, Tensor, StockDelta, Tensor,
+                                     Tensor]:
+    """Strict-stock New-Order over the dense escrow layout: every line
+    spends this replica's share of its (warehouse, item) cell
+    (``shares``/``spent`` are this replica's ``[W, I]`` slot, W the GLOBAL
+    warehouse count). A transaction commits iff every valid line fits the
+    remaining share (FCFS in batch order, duplicate cells included);
+    otherwise it aborts with no effects. ``admission`` and ``effects`` pick
+    strategies with bit-identical results.
+
+    ``shares`` is read only before the state changes on the "scan" effects
+    path, so a caller may pass ``state.s_quantity`` itself there.
+
+    Returns (state, spent', remote outbox, totals, committed [B]).
+    """
+    w_hi = scale.n_warehouses if w_hi is None else w_hi
+    ramp_ts = batch.ts * num_replicas + replica
+    line_valid = order_line_valid(batch)
+    # this replica's remaining share of every cell, flattened w-major
+    avail0 = (shares - spent).reshape(-1)
+    slot = batch.supply_w * scale.n_items + batch.i_id
+
+    if resolve_effects(effects) == "fused":
+        state, avail, delta, total, committed = _neworder_fused_effects(
+            state, batch, scale, avail0, slot, line_valid, ramp_ts, w_lo,
+            w_hi, admission)
+        return state, shares - avail.reshape(shares.shape), delta, total, \
+            committed
+
+    committed, avail = admit_fcfs(avail0, slot, batch.qty, line_valid,
+                                  admission)
+    spent = shares - avail.reshape(shares.shape)
+    state, delta, total = _neworder_committed_effects(
+        state, batch, scale, committed, line_valid, ramp_ts, w_lo, w_hi)
+    return state, spent, delta, total, committed
 
 
 def _neworder_committed_effects(state: TPCCState, batch: NewOrderBatch,

@@ -45,11 +45,12 @@ def cuda():
 
 
 BIG = np.iinfo(np.int32).max // 2
+DENSE_CELLS = 64 * 100_000   # the dense escrow layout at 64 warehouses
 
 
 def _problem(seed, B=16, L=6, A=48, n_keys=12, n_cells=40, lo=0, hi=40,
              dup_heavy=False, distinct=False, collide=0, by="hash",
-             sentinel=False, device="cpu"):
+             sentinel=False, dense=False, device="cpu"):
     """A seeded megastep problem. ``distinct``: all B x L slots distinct
     (A = B L) and every transaction residual (its first line valid and one
     short of its cell); ``collide``: the slots take ``collide`` values
@@ -57,11 +58,17 @@ def _problem(seed, B=16, L=6, A=48, n_keys=12, n_cells=40, lo=0, hi=40,
     its hash, so one probe chain) or are equal modulo the table size
     (``by="mod"``: the runs of neighbours the hash must scatter);
     ``sentinel``: the last cell holds the BIG remote-cold sentinel and a
-    fifth of the lines name it."""
+    fifth of the lines name it; ``dense``: the dense escrow layout's
+    availability vector of 64 warehouses x 100,000 items, slots ``w *
+    100,000 + i`` of warehouses 42-63 (every slot above 2**22), uniform
+    items, and three lines of every other transaction on one of 16
+    neighbouring items of warehouse 63."""
     rng = np.random.default_rng(seed)
     H = walk_shape(B, L)[1]
     if distinct:
         A = B * L
+    if dense:
+        A = DENSE_CELLS
     if collide:
         if by == "mod":
             values = 7 + H * np.arange(collide)
@@ -86,6 +93,12 @@ def _problem(seed, B=16, L=6, A=48, n_keys=12, n_cells=40, lo=0, hi=40,
         avail0[-1] = BIG
         slot = np.where(rng.random((B, L)) < 0.2, A - 1, slot).astype(
             np.int32)
+    if dense:
+        w = rng.integers(42, 64, (B, L))
+        item = rng.integers(0, 100_000, (B, L))
+        w[::2, :3] = 63
+        item[::2, :3] = rng.integers(0, 16, (B, L))[::2, :3]
+        slot = (w * 100_000 + item).astype(np.int32)
     arrays = dict(
         avail0=avail0,
         slot=slot,
@@ -118,13 +131,18 @@ CASES = [
     dict(B=64, L=8, n_keys=16, collide=12, by="mod", hi=40),
     # the BIG sentinel cell beside contended ones
     dict(B=128, L=15, A=600, n_keys=64, sentinel=True, hi=20),
+    # the dense layout's 6.4 M cells: scarce, then plumper
+    dict(B=256, L=15, n_keys=640, n_cells=4000, dense=True, hi=30),
+    dict(B=256, L=15, n_keys=640, n_cells=4000, dense=True, lo=100, hi=150),
 ]
-PLUMP, DISTINCT, TILES = 1, 5, 6
+PLUMP, DISTINCT, TILES, DENSE = 1, 5, 6, (10, 11)
 
 
-def _check_case(case, n_res, B, L):
+def _check_case(case, n_res, B, L, slot=None):
     """What each case is for actually happened."""
     n = int(n_res[0])
+    if case in DENSE:
+        assert 0 < n < B and int(slot.min()) >= 1 << 22
     if case == PLUMP:
         assert n == 0
     if case == DISTINCT:
@@ -145,7 +163,7 @@ def test_escrow_admit_kernel_matches_plain(cuda, case):
     args = (t["avail0"], t["slot"], t["qty"], t["line_valid"])
     fast, _, _ = contention_gate(*args)
     res_idx, n_res = residual_order(fast)
-    _check_case(case, n_res, *args[1].shape)
+    _check_case(case, n_res, *args[1].shape, slot=args[1])
     before = escrow_admit_cuda.launches
     # the kernel updates its avail0 in place: give it a copy
     fresh = args[0].clone()
@@ -169,7 +187,7 @@ def test_txn_megastep_kernel_matches_plain(cuda, case):
     avail0, slot, qty, lv = args[:4]
     fast, _, _ = contention_gate(avail0, slot, qty, lv)
     res_idx, n_res = residual_order(fast)
-    _check_case(case, n_res, *slot.shape)
+    _check_case(case, n_res, *slot.shape, slot=slot)
     gate = (fast, res_idx, n_res)
     before = txn_megastep_cuda.launches
     # the kernel updates its avail0 in place: give it a copy

@@ -105,12 +105,20 @@ def test_serving_entry_points_raise_without_cuda(monkeypatch):
 
 def test_unported_paths_raise_not_implemented():
     scale = tpcc.TPCCScale()
-    for kw in (dict(escrow_layout="dense"), dict(n_shards=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            single_host_engine(scale, stock_invariant="strict", device="cpu",
-                               **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        single_host_engine(scale, stock_invariant="strict", device="cpu",
+                           n_shards=2)
+    # the dense escrow layout is ported: it builds
+    dense = single_host_engine(scale, stock_invariant="strict",
+                               escrow_layout="dense", device="cpu")
+    assert dense.escrow_layout == "dense"
+    # a COORDINATION_REQUIRED plan is refused as the reference refuses it,
+    # pointing to the 2PC fallback; that runs on one shard
+    with pytest.raises(ValueError, match="plan_engine"):
         single_host_engine(scale, stock_invariant="serial", device="cpu")
+    from repro_torch.txn.twopc import TwoPCEngine
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TwoPCEngine(scale, strict_stock=True, device="cpu", n_shards=2)
     from repro_torch.txn.drivers import run_loop
     eng = single_host_engine(scale, device="cpu")
     for kw in (dict(fused=True), dict(retry_cap=4), dict(liveness=object()),

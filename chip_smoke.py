@@ -2,7 +2,8 @@
 """Drive the PyTorch port's main paths on one CUDA card: TPC-C New-Order
 alone, the five-transaction mix, the anti-entropy merge of divergent
 replica snapshots, LM serving (a dense and an RWKV-6 model), the dense
-escrow layout and the coordinated 2PC baseline.
+escrow layout, the coordinated 2PC baseline, and TPC-C as four replicas on
+one card.
 
     python3 chip_smoke.py
 
@@ -83,7 +84,31 @@ six CUDA kernels of the port from ``src/repro_torch/kernels/csrc`` (one
      must end bit-equal to phase 14's dense run. The non-strict
      ``TwoPCEngine`` over phase 3's stream ends in phase 3's state, and
      its ``read_step`` on phase 7's final state equals
-     ``Engine.order_status_step`` (through the ramp_read kernel).
+     ``Engine.order_status_step`` (through the ramp_read kernel);
+ 16. replicas on one card: the deployment as ``SHARDS`` = 4 shards of 16
+     warehouses (``Engine(n_shards=4)``), 64 New-Orders a shard a batch
+     (256 a batch, as above), the traffic of phases 3-8: merge New-Order
+     and the merge mix (audits, no fracture, ramp_read once a shard a
+     batch), sparse escrow through txn_megastep and through escrow_admit
+     (a launch a shard a batch) and dense escrow through txn_megastep,
+     each strictly audited with the shares of all four replicas, and each
+     layout through the plain path on the card (the definitional
+     sequential walk), every kernel run bit-equal to its layout's plain
+     run; then on each shard's own problem for the next batch (its view,
+     ``w_lo``, its replica's headroom and stamps, 64 rows) escrow_admit and
+     txn_megastep against their plain versions, in both layouts, and
+     timed; strict 2PC on the same per-shard stream (escrow_admit once
+     a batch), its throughput without and with the modeled latency, and
+     escrow's ratio over it; the 2PC ``read_step`` against
+     ``order_status_step``, its grant and vote counted, and each shard's
+     Order-Status problem from that batch (as it is and with half the
+     lines concealed) through ramp_read against its plain version; the
+     structural
+     proofs (the hot paths and the RAMP reads call no collective and leave
+     the other shards' slices bit-unchanged; anti-entropy, the refreshes
+     and both 2PC paths call collectives, by ``txn/collectives.py``'s
+     counts); and a small four-shard run through the kernels on the card,
+     bit-equal to the plain path on the CPU.
 
 The deployment is TPC-C at the specification's per-warehouse cardinalities
 (TPC-C standard specification, clause 4.3.3.1: 10 districts, 3000 customers
@@ -99,9 +124,10 @@ the launcher's seeded prompts of 2-512 tokens, 32 new tokens each and
 SmolLM's context of 2048 as the KV capacity.
 
 Launch counters are set to 0 just before each main path (phases 3-4, 7,
-8, 10, 11, 12, 14 and 15) and read just after. The second-to-last line of output is the
-kernels' JSON record; the last line is the device record. Any failure exits
-non-zero; so does a machine without a CUDA device.
+8, 10, 11, 12, 14, 15 and each run of 16) and read just after. The
+second-to-last line of output is the kernels' JSON record; the last line
+is the device record. Any failure exits non-zero; so does a machine
+without a CUDA device.
 """
 
 from __future__ import annotations
@@ -179,28 +205,39 @@ def _same(a, b) -> list[str]:
     return [f for f, x, y in zip(a._fields, a, b) if not torch.equal(x, y)]
 
 
-def admission_problem(eng, state, esc, batch):
-    """The megastep problem ``(args, kw)`` the escrow main path builds for
-    ``batch`` against ``state`` and ``esc`` (its first four arguments are
-    the admission problem)."""
+def admission_problem(eng, state, esc, batch, r=0):
+    """The megastep problem ``(args, kw)`` that shard ``r`` of the escrow
+    main path builds for its part of ``batch`` against ``state`` and
+    ``esc``, in ``eng``'s layout, as the engine builds it: the shard's
+    view, ``w_lo``, its replica's headroom ``shares[r] - spent[r]`` and
+    stamps (its first four arguments are the admission problem)."""
     from repro_torch.txn import tpcc
+    from repro_torch.txn.engine import batch_parts
 
-    W = eng.scale.n_warehouses
-    avail0, slot = tpcc.sparse_admission_problem(
-        state.s_quantity, esc.keys, esc.shares[0] - esc.spent[0],
-        batch.supply_w, batch.i_id, eng.scale.n_items, 0, W)
-    return tpcc.megastep_args(state, batch, eng.scale, avail0, slot,
-                              tpcc.order_line_valid(batch), batch.ts, 0, W)
+    n_items, R = eng.scale.n_items, eng.n_shards
+    w_lo = r * eng.w_per_shard
+    view = eng.shard_view(state, r)
+    part = batch_parts(batch, R)[r]
+    if eng.escrow_layout == "sparse":
+        avail0, slot = tpcc.sparse_admission_problem(
+            view.s_quantity, esc.keys, esc.shares[r] - esc.spent[r],
+            part.supply_w, part.i_id, n_items, w_lo, w_lo + eng.w_per_shard)
+    else:
+        avail0 = (esc.shares[r] - esc.spent[r]).reshape(-1)
+        slot = part.supply_w * n_items + part.i_id
+    return tpcc.megastep_args(view, part, eng.scale, avail0, slot,
+                              tpcc.order_line_valid(part),
+                              part.ts * R + r, w_lo, w_lo + eng.w_per_shard)
 
 
-def main_path_batch(eng, index):
+def main_path_batch(eng, index, batch_per_shard=BATCH):
     """Batch ``index`` of the escrow main path's stream (same seed)."""
     import numpy as np
 
     from repro_torch.txn.drivers import generate_neworder_stream
 
     return generate_neworder_stream(
-        eng, batch_per_shard=BATCH, n_batches=index + 1,
+        eng, batch_per_shard=batch_per_shard, n_batches=index + 1,
         remote_frac=REMOTE_FRAC, rng=np.random.default_rng(SEED),
         item_skew=ITEM_SKEW)[index]
 
@@ -1144,9 +1181,9 @@ def coordinated_baseline(scale, merge, s_merge, s_mix, s_dense, m_dense,
     OC = s_mix.o_c_id.shape[-1]
     latest = ((s_mix.d_next_o_id[wl, d] - 1) % OC).long()
     owners = os_batch._replace(c=s_mix.o_c_id[wl, d, latest])
-    # on one shard read_step and order_status_step are one body (the lock
-    # grant and the release vote are the identity): what this shows on the
-    # card is that 2PC's read path launches ramp_read
+    # on one shard read_step reads as order_status_step does (its grant and
+    # vote pass every query): what this shows on the card is that 2PC's
+    # read path launches ramp_read; phase 16 reads four shards
     ramp_read_cuda.launches = 0
     got = two.read_step(s_mix, owners)
     reads = ramp_read_cuda.launches
@@ -1157,6 +1194,251 @@ def coordinated_baseline(scale, merge, s_merge, s_mix, s_dense, m_dense,
     if bad or reads != 1 or int(got.found.sum()) <= 0:
         raise AssertionError(f"2PC read_step != order_status_step: {bad}")
     return {"escrow_admit": b1, "ramp_read": reads}
+
+
+SHARDS = 4                 # phase 16: replicas of the deployment on one card
+
+
+def replicas_on_one_card(scale):
+    """Phase 16: the deployment as ``SHARDS`` replicas of W / SHARDS
+    warehouses on one card (``Engine(n_shards=SHARDS)``), BATCH // SHARDS
+    New-Orders a shard a batch, launch counts from 0 before each run.
+    Merge New-Order and the merge mix (audits, no fracture); sparse escrow
+    through B2 and through B1 and dense escrow through B2 (strict audits),
+    each bit-equal to its layout's plain run on the card; B1 and B2 on
+    each shard's next problem and B3 on each shard's Order-Status problem
+    against their plain versions; strict 2PC on the same per-shard stream
+    (B1 once a batch), with and without the modeled latency; ``read_step``
+    against ``order_status_step``; the structural proofs; a small run on
+    the card against the CPU plain path. Returns each kernel's launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.escrow_admit import escrow_admit_cuda
+    from repro_torch.kernels.ramp_read import ramp_read_cuda
+    from repro_torch.kernels.txn_megastep import txn_megastep_cuda
+    from repro_torch.txn import (TPCCScale, TwoPCEngine, assert_audit,
+                                 collectives, init_state, ramp,
+                                 run_closed_loop_2pc, run_loop)
+    from repro_torch.txn.drivers import (generate_mix_batches,
+                                         generate_neworder_stream)
+    from repro_torch.txn.engine import Engine, batch_parts
+    from repro_torch.txn.latency import DelayModel, simulate
+    from repro_torch.txn.twopc import _conflict_rounds
+
+    R, bps = SHARDS, BATCH // SHARDS
+    per_run = R * (N_BATCHES + 1)       # a launch a shard a batch + warm-up
+    loop = dict(batch_per_shard=bps, n_batches=N_BATCHES,
+                remote_frac=REMOTE_FRAC, merge_every=MERGE_EVERY, seed=SEED)
+    counts = lambda m: (m.neworders, m.aborts, m.cold_rejects, m.refreshes,
+                        m.anti_entropy_rounds)
+    launches = dict.fromkeys(("escrow_admit", "txn_megastep", "ramp_read"),
+                             0)
+    print(f"replicas: {R} shards of {scale.n_warehouses // R} warehouses on "
+          f"one card, {bps} New-Orders a shard a batch")
+
+    merge = Engine(scale, n_shards=R)
+    s, _, st = run_loop(merge, init_state(scale, seed=SEED), **loop)
+    rep = assert_audit(s).describe()
+    print(f"replicas, merge: {st.neworders} committed, {st.throughput:,.0f} "
+          f"txn/s, {st.anti_entropy_rounds} anti-entropy rounds; {rep}")
+    del s
+    ramp_read_cuda.launches = 0
+    s_mix, _, mm = run_loop(merge, init_state(scale, seed=SEED), **loop,
+                            **MIX)
+    b3 = ramp_read_cuda.launches
+    rep = assert_audit(s_mix).describe()
+    print(f"replicas, merge mix: {mm.neworders} New-Order, {mm.payments} "
+          f"Payment, {mm.order_statuses} Order-Status ({mm.reads_found} "
+          f"found), {mm.stock_levels} Stock-Level, {mm.deliveries} "
+          f"Delivery; {mm.throughput:,.0f} txn/s; fractures_observed="
+          f"{mm.fractures_observed}; ramp_read launches={b3}; {rep}")
+    if mm.fractures_observed or b3 != per_run:
+        raise AssertionError(f"replicas: the merge mix fractured or missed "
+                             f"ramp_read ({b3} launches, want {per_run})")
+    launches["ramp_read"] += b3
+
+    # each layout through its kernels and through the plain path (the
+    # definitional sequential walk, which shares no code with B1 or B2)
+    runs, dense = {}, dict(escrow_layout="dense")
+    for tag, admission, effects, kw in (
+            ("sparse, megastep", "kernel", "fused", {}),
+            ("sparse, escrow_admit", "kernel", "scan", {}),
+            ("sparse, plain", "scan", "scan", {}),
+            ("dense, megastep", "kernel", "fused", dense),
+            ("dense, plain", "scan", "scan", dense)):
+        escrow_admit_cuda.launches = txn_megastep_cuda.launches = 0
+        runs[tag] = escrow_run(scale, admission, effects, batch=bps,
+                               audit=admission == "kernel", n_shards=R, **kw)
+        got = (escrow_admit_cuda.launches, txn_megastep_cuda.launches)
+        want = {"fused": (0, per_run), "scan": (per_run, 0)}[effects] \
+            if admission == "kernel" else (0, 0)
+        _, esc, m, rep = runs[tag]
+        print(f"replicas, escrow ({tag}): {m.neworders} committed, "
+              f"{m.aborts} aborts, {m.cold_rejects} cold rejects, "
+              f"{m.refreshes} refreshes, {m.throughput:,.0f} txn/s; "
+              f"escrow_admit/txn_megastep launches={got}; shares "
+              f"{tuple(esc.shares.shape)}; {rep}")
+        if got != want or esc.shares.shape[0] != R:
+            raise AssertionError(f"replicas, escrow ({tag}): launches {got}, "
+                                 f"want {want}")
+        launches["escrow_admit"] += got[0]
+        launches["txn_megastep"] += got[1]
+    for layout, kernels in (("sparse", ("megastep", "escrow_admit")),
+                            ("dense", ("megastep",))):
+        s_p, e_p, m_p, _ = runs[f"{layout}, plain"]
+        for k in kernels:
+            s_k, e_k, m_k, _ = runs[f"{layout}, {k}"]
+            bad = _same(s_k, s_p) + _same(e_k, e_p)
+            if bad or counts(m_k) != counts(m_p):
+                raise AssertionError(f"replicas, {layout}: {k} != plain "
+                                     f"path: {bad} {counts(m_k)} "
+                                     f"{counts(m_p)}")
+        print(f"replicas: {layout} escrow through {' and '.join(kernels)} "
+              f"bit-equal to the plain path on the card (state, shares, "
+              f"spent, counts {counts(m_p)})")
+    best = max(r[2].throughput for tag, r in runs.items()
+               if "plain" not in tag)
+
+    # each shard's B1 and B2 problem for the next batch, at the end of each
+    # layout's kernel run, against the plain versions
+    escrows = [Engine(scale, stock_invariant="strict", admission="kernel",
+                      effects="fused", escrow_layout=lay, n_shards=R)
+               for lay in ("sparse", "dense")]
+    n_res = []
+    for eng in escrows:
+        s_k, e_k, _, _ = runs[f"{eng.escrow_layout}, megastep"]
+        batch = main_path_batch(eng, N_BATCHES, bps)
+        for r in range(R):
+            row = check_and_time(
+                f"shard {r} of {R}, {eng.escrow_layout}, after the run",
+                *admission_problem(eng, s_k, e_k, batch, r))
+            n_res.append(row["txn_megastep"]["n_res"])
+    if not any(n_res):
+        raise AssertionError("replicas: no shard problem has residual work")
+    del runs, s_p, e_p, s_k, e_k
+    torch.cuda.empty_cache()
+
+    two = TwoPCEngine(scale, strict_stock=True, n_shards=R)
+    lat = simulate("D-2PC", DelayModel("lan"), 2, trials=400)
+    commit_s = lat.mean_latency_ms / 1e3
+    state = init_state(scale, seed=SEED)
+    state.s_quantity.mul_(STOCK_MULTIPLIER)
+    q0 = state.s_quantity.clone()
+    escrow_admit_cuda.launches = 0
+    s2, st2 = run_closed_loop_2pc(two, state, batch_per_shard=bps,
+                                  n_batches=N_BATCHES,
+                                  remote_frac=REMOTE_FRAC, seed=SEED,
+                                  item_skew=ITEM_SKEW)
+    b1 = escrow_admit_cuda.launches
+    del state
+    rep = assert_audit(s2, initial_stock=q0, strict_stock=True).describe()
+    del s2, q0
+    if b1 != N_BATCHES + 1:
+        raise AssertionError(f"replicas, strict 2PC: {b1} escrow_admit "
+                             f"launches, want one a batch")
+    launches["escrow_admit"] += b1
+    rounds = sum(_conflict_rounds(b, scale.districts)
+                 for b in generate_neworder_stream(
+                     two, batch_per_shard=bps, n_batches=N_BATCHES,
+                     remote_frac=REMOTE_FRAC,
+                     rng=np.random.default_rng(SEED), item_skew=ITEM_SKEW))
+    wall_lat = st2.wall_seconds + commit_s * rounds
+    tput_lat = st2.committed / wall_lat
+    print(f"replicas, strict 2PC: {st2.committed} committed, {st2.aborted} "
+          f"aborted; escrow_admit launches={b1}; {rep}")
+    print(f"replicas, strict 2PC throughput: {st2.throughput:,.0f} txn/s on "
+          f"the card's wall time alone ({st2.wall_seconds:.4f} s); "
+          f"{tput_lat:,.2f} txn/s with the modeled D-2PC LAN latency "
+          f"({lat.mean_latency_ms} ms x {rounds} rounds) charged to the same "
+          f"run ({wall_lat:.3f} s); best escrow run {best:,.0f} txn/s: "
+          f"{best / tput_lat:,.2f}x over 2PC with the latency, "
+          f"{best / st2.throughput:.2f}x without")
+
+    reader = TwoPCEngine(scale, n_shards=R)
+    os_batch = generate_mix_batches(
+        merge, batch_per_shard=bps, n_batches=1, remote_frac=REMOTE_FRAC,
+        read_frac=READ_FRAC, seed=SEED)[2][0]
+    wl, d = os_batch.w.long(), os_batch.d.long()
+    OC = s_mix.o_c_id.shape[-1]
+    latest = ((s_mix.d_next_o_id[wl, d] - 1) % OC).long()
+    owners = os_batch._replace(c=s_mix.o_c_id[wl, d, latest])
+    ramp_read_cuda.launches = 0
+    with collectives.counted() as vote:
+        got = reader.read_step(s_mix, owners)
+    reads = ramp_read_cuda.launches
+    want = merge.order_status_step(s_mix, owners)
+    found = got.found
+    bad = [f for f, x, y in zip(got._fields, got, want)
+           if not torch.equal(x[found], y[found])]
+    print(f"replicas, 2PC read_step: {int(found.sum())} of "
+          f"{len(owners.w)} found, equal to Engine.order_status_step where "
+          f"found: {not bad} (found equal: {torch.equal(found, want.found)});"
+          f" ramp_read launches={reads}; {vote.describe()}")
+    if bad or not torch.equal(found, want.found) or reads != R or \
+            int(found.sum()) <= 0 or vote.total_ops <= 0:
+        raise AssertionError(f"replicas: read_step != order_status_step: "
+                             f"{bad}")
+    launches["ramp_read"] += reads
+    # each shard's B3 problem from that batch, on the state and on a copy
+    # with half the lines concealed, against the plain version
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    hidden = ramp.conceal_lines(s_mix, torch.rand(
+        s_mix.ol_vis.shape, generator=gen, device="cuda") < 0.5)
+    for r, part in enumerate(batch_parts(owners, R)):
+        w_lo = r * merge.w_per_shard
+        for tag, st in (("", s_mix), (", half concealed", hidden)):
+            view = merge.shard_view(st, r)
+            slot, hit = ramp.order_status_slots(view, part, w_lo)
+            row = ramp_read_check_and_time(
+                f"shard {r} of {R}: Order-Status{tag}",
+                ramp.order_status_lines(view, part, slot, hit, w_lo), 50)
+            if tag and row["repaired"] <= 0:
+                raise AssertionError(f"replicas: shard {r}'s concealed "
+                                     f"read repaired no line")
+    del s_mix, hidden
+    torch.cuda.empty_cache()
+
+    # the structural proofs, at the deployment's size
+    free = {"merge hot path": merge.prove_coordination_free(8),
+            "escrow hot path (sparse)": escrows[0].prove_coordination_free(8),
+            "escrow hot path (dense)": escrows[1].prove_coordination_free(8),
+            "RAMP reads": merge.prove_read_coordination_free(8)}
+    paid = {"anti-entropy": merge.count_anti_entropy_collectives(8),
+            "refresh (sparse)": escrows[0].count_refresh_collectives(),
+            "refresh (dense)": escrows[1].count_refresh_collectives(),
+            "2PC step": two.hot_path_collectives(8),
+            "2PC read": reader.read_path_collectives(8)}
+    for k, v in free.items():
+        print(f"proof [{k}]: {v}; foreign slices untouched")
+    for k, v in paid.items():
+        print(f"proof [{k}]: {v.describe()}")
+    if any(v.count("NONE") != (2 if k == "RAMP reads" else 1)
+           for k, v in free.items()) or \
+            any(v.total_ops <= 0 for v in paid.values()):
+        raise AssertionError("replicas: a structural proof failed")
+    del escrows
+    torch.cuda.empty_cache()
+
+    # a small run: the kernels on the card against the plain path on the CPU
+    tiny = TPCCScale(n_warehouses=8, districts=4, customers=8, n_items=64,
+                     order_capacity=64)
+    cpu = lambda t: type(t)(*(x.cpu() for x in t))
+    for tag, mix in (("New-Order", None), ("five-transaction mix", MIX)):
+        sk, ek, mk, _ = escrow_run(tiny, "kernel", "fused", device="cuda",
+                                   batch=16, n_batches=6, mix=mix,
+                                   n_shards=R, hot_items=4)
+        sc, ec, mc, _ = escrow_run(tiny, "scan", "scan", device="cpu",
+                                   batch=16, n_batches=6, audit=False,
+                                   mix=mix, n_shards=R, hot_items=4)
+        bad = _same(cpu(sk), sc) + _same(cpu(ek), ec)
+        if bad or counts(mk) != counts(mc):
+            raise AssertionError(f"replicas, small run ({tag}): card != CPU "
+                                 f"plain path: {bad} {counts(mk)} "
+                                 f"{counts(mc)}")
+        print(f"replicas, small run ({tag}, R={R}): card kernels == CPU "
+              f"plain path, counts {counts(mk)}")
+    return launches
 
 
 def main() -> int:
@@ -1382,6 +1664,13 @@ def main() -> int:
                                      m_dense, best).items():
         launches[k] += n
     del s_merge, s_mix, s_dense
+    torch.cuda.empty_cache()
+
+    # -- phase 16: replicas on one card, launch counts from 0 ----------------
+    t0 = time.perf_counter()
+    for k, n in replicas_on_one_card(scale).items():
+        launches[k] += n
+    print(f"replicas: phase 16 in {time.perf_counter() - t0:.1f} s")
     print(f"launches, every main path: {json.dumps(launches)}")
 
     for k in ("ramp_read", "lattice_merge", "flash_attention", "rwkv6_scan"):

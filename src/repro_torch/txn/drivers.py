@@ -104,25 +104,6 @@ class _OutboxWindow:
         return self._n
 
 
-def _copy(t):
-    return type(t)(*(x.clone() for x in t))
-
-
-def _neworder_batch(engine, rng: np.random.Generator, batch_per_shard: int,
-                    remote_frac: float, ts0: int,
-                    item_skew: float = 0.0) -> tuple[NewOrderBatch, int]:
-    """One home-partitioned New-Order batch; returns (batch, advanced ts0).
-    The single source of the stream layout."""
-    parts = []
-    for s in range(engine.n_shards):
-        parts.append(tpcc.generate_neworder(
-            rng, engine.scale, batch_per_shard, remote_frac=remote_frac,
-            w_lo=s * engine.w_per_shard, w_hi=(s + 1) * engine.w_per_shard,
-            ts0=ts0, item_skew=item_skew, device=engine.device))
-        ts0 += batch_per_shard
-    return NewOrderBatch(*(torch.cat(xs) for xs in zip(*parts))), ts0
-
-
 def generate_neworder_stream(engine, *, batch_per_shard: int,
                              n_batches: int, remote_frac: float,
                              rng: np.random.Generator, ts0: int = 0,
@@ -130,19 +111,10 @@ def generate_neworder_stream(engine, *, batch_per_shard: int,
     """Home-partitioned New-Order batches for a whole run."""
     batches = []
     for _ in range(n_batches):
-        batch, ts0 = _neworder_batch(engine, rng, batch_per_shard,
-                                     remote_frac, ts0, item_skew)
+        batch, ts0 = tpcc.neworder_batch(engine, rng, batch_per_shard,
+                                         remote_frac, ts0, item_skew)
         batches.append(batch)
     return batches
-
-
-def _home_partitioned(gen, rng, engine, per_shard: int, **kw):
-    parts = [gen(rng, engine.scale, per_shard,
-                 w_lo=s * engine.w_per_shard,
-                 w_hi=(s + 1) * engine.w_per_shard, device=engine.device,
-                 **kw)
-             for s in range(engine.n_shards)]
-    return type(parts[0])(*(torch.cat(xs) for xs in zip(*parts)))
 
 
 def generate_mix_batches(engine, *, batch_per_shard: int,
@@ -158,14 +130,14 @@ def generate_mix_batches(engine, *, batch_per_shard: int,
     ts0 = 0
     no_batches, pay_batches, os_batches, sl_batches = [], [], [], []
     for _ in range(n_batches):
-        batch, ts0 = _neworder_batch(engine, rng, batch_per_shard,
-                                     remote_frac, ts0, item_skew)
+        batch, ts0 = tpcc.neworder_batch(engine, rng, batch_per_shard,
+                                         remote_frac, ts0, item_skew)
         no_batches.append(batch)
-        pay_batches.append(_home_partitioned(
+        pay_batches.append(tpcc.home_partitioned(
             tpcc.generate_payment, rng, engine, batch_per_shard))
-        os_batches.append(_home_partitioned(
+        os_batches.append(tpcc.home_partitioned(
             tpcc.generate_order_status, rng, engine, per_shard_reads))
-        sl_batches.append(_home_partitioned(
+        sl_batches.append(tpcc.home_partitioned(
             tpcc.generate_stock_level, rng, engine, per_shard_reads))
     return no_batches, pay_batches, os_batches, sl_batches
 
@@ -236,8 +208,8 @@ def run_loop(engine, state: TPCCState, esc=None, *,
         no_b = generate_neworder_stream(
             engine, batch_per_shard=batch_per_shard, n_batches=n_batches,
             remote_frac=remote_frac, rng=rng, item_skew=item_skew)
-        pay_b = [_home_partitioned(tpcc.generate_payment, rng, engine,
-                                   batch_per_shard)
+        pay_b = [tpcc.home_partitioned(tpcc.generate_payment, rng, engine,
+                                       batch_per_shard)
                  for _ in range(n_batches)] if payments else None
         os_b = sl_b = None
     state, esc, stats = _dispatch_loop(
@@ -276,9 +248,9 @@ def _dispatch_loop(engine, state, esc, no_b, pay_b, os_b, sl_b, *,
 
     # -- warm-up on copies: builds the kernels; the timed loop covers every
     # batch
-    warm = _copy(state)
+    warm = tpcc.copy_tree(state)
     if escrow:
-        wesc = _copy(esc)
+        wesc = tpcc.copy_tree(esc)
         warm, wesc, outbox, _, _ = engine.neworder_escrow_step(warm, wesc,
                                                                no_b[0])
     else:

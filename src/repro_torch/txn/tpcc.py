@@ -258,6 +258,40 @@ def generate_stock_level(rng: np.random.Generator, scale: TPCCScale,
     return StockLevelBatch(*_on(dev, w, d, threshold))
 
 
+def home_partitioned(gen, rng: np.random.Generator, engine, per_shard: int,
+                     **kw):
+    """One batch of ``gen``'s transactions, ``per_shard`` homed on each of
+    ``engine``'s shards in shard order (``engine``: its ``scale``,
+    ``n_shards``, ``w_per_shard`` and ``device``)."""
+    parts = [gen(rng, engine.scale, per_shard,
+                 w_lo=s * engine.w_per_shard,
+                 w_hi=(s + 1) * engine.w_per_shard, device=engine.device,
+                 **kw)
+             for s in range(engine.n_shards)]
+    return type(parts[0])(*(torch.cat(xs) for xs in zip(*parts)))
+
+
+def neworder_batch(engine, rng: np.random.Generator, batch_per_shard: int,
+                   remote_frac: float, ts0: int,
+                   item_skew: float = 0.0) -> tuple[NewOrderBatch, int]:
+    """One home-partitioned New-Order batch, each shard's part stamped
+    after the previous one's; returns (batch, advanced ts0). The single
+    source of the stream layout."""
+    parts = []
+    for s in range(engine.n_shards):
+        parts.append(generate_neworder(
+            rng, engine.scale, batch_per_shard, remote_frac=remote_frac,
+            w_lo=s * engine.w_per_shard, w_hi=(s + 1) * engine.w_per_shard,
+            ts0=ts0, item_skew=item_skew, device=engine.device))
+        ts0 += batch_per_shard
+    return NewOrderBatch(*(torch.cat(xs) for xs in zip(*parts))), ts0
+
+
+def copy_tree(t):
+    """A copy of a tuple of tensors (a state, a batch, an escrow)."""
+    return type(t)(*(x.clone() for x in t))
+
+
 # ---------------------------------------------------------------------------
 # Remote stock deltas (the RAMP-style asynchronous write set)
 # ---------------------------------------------------------------------------

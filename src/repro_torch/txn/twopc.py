@@ -8,16 +8,18 @@ locks to atomically control the visibility of these updates ...
 coordination pattern a 2PC system pays for:
 
   1. the prepare phase: every shard broadcasts its full write intent (no
-     outbox deferral) and remote stock updates apply synchronously inside
-     the step;
-  2. the commit barrier: a unanimous vote over the shards;
+     outbox deferral), an all-gather, and remote stock updates apply
+     synchronously inside the step;
+  2. the commit barrier: a unanimous vote over the shards, a ``psum``;
   3. the wall clock additionally charges the atomic-commitment latency from
      the Monte-Carlo model (``txn/latency.py``) per conflicting round,
      since one device cannot reproduce network stalls.
 
-On one shard the all-gathers and the vote are the identity, so the step
-bodies below are the reference's with them left out; ``n_shards > 1``
-raises. Its coordination cost on one card is the modeled latency alone.
+The shards are those of ``txn/engine.py``: contiguous row blocks of the
+global tables on one card, each body run on its own block, what crosses
+shards counted by ``txn/collectives.py``. On one card the collectives move
+no bytes between devices, so the coordination cost in time is the modeled
+latency alone; their count is what the structural contrast reads.
 """
 
 from __future__ import annotations
@@ -30,30 +32,33 @@ import torch
 
 from repro_torch.device import resolve_device, synchronize
 
-from . import ramp, tpcc
-from .drivers import RunStats, _copy
-from .engine import _one_shard
+from . import collectives, ramp, tpcc
+from .drivers import RunStats
+from .engine import (batch_parts, cat_shards, gather_and_apply_outbox,
+                     proof_batch, shard_view, shards_of)
 from .tpcc import NewOrderBatch, OrderStatusBatch, TPCCScale, TPCCState
-
-_COLLECTIVES = ("the structural proof that the 2PC paths carry collectives "
-                "comes with multi-shard state, ROADMAP Queue A item 4; one "
-                "shard has none")
 
 
 @dataclasses.dataclass
 class TwoPCEngine:
     """``strict_stock=True`` is the COORDINATION_REQUIRED fallback the
     planner selects for an opaque "serializable stock" invariant
-    (``engine.plan_engine(stock_invariant="serial")``): every step replays
-    the whole batch in timestamp order against the global stock as ONE
-    escrow share (strict ``s_quantity >= 0``, atomic aborts, no restock).
-    Without it, the step is New-Order with restock and the synchronous
-    apply of every remote stock update.
+    (``engine.plan_engine(stock_invariant="serial")``): every step
+    broadcasts the full write intent, the global batch AND the global
+    state, and replays the whole batch in timestamp order against the
+    gathered stock as ONE escrow share (strict ``s_quantity >= 0``, atomic
+    aborts, no restock); each shard keeps its slice of the verdicts, under
+    the vote. Without it, the step is New-Order with restock and the
+    synchronous apply of every remote stock update.
 
-    The strict step admits through ``ops.escrow_admit`` (the escrow_admit
-    kernel on the card), where the reference runs its sequential scan: the
-    verdicts are bit-identical by the admission contract.
-    ``device=None`` means the CUDA card and raises when there is none.
+    The reference's shards each replay the gathered batch against the
+    gathered state, R identical replays; on one card the gathered state is
+    the global tables themselves, so the step replays once, in place, and
+    copies no table. The replay admits through ``ops.escrow_admit`` (the
+    escrow_admit kernel on the card), where the reference runs its
+    sequential scan: the verdicts are bit-identical by the admission
+    contract. ``device=None`` means the CUDA card and raises when there is
+    none.
     """
 
     scale: TPCCScale
@@ -63,8 +68,16 @@ class TwoPCEngine:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        _one_shard(self.n_shards)
-        self.w_per_shard = self.scale.n_warehouses
+        self.w_per_shard = shards_of(self.scale, self.n_shards)
+
+    def _parts(self, batch):
+        return batch_parts(batch, self.n_shards)
+
+    def _vote(self) -> torch.Tensor:
+        """The commit barrier: every shard votes 1, summed over shards;
+        true iff unanimous."""
+        one = torch.ones((), dtype=torch.int32, device=self.device)
+        return collectives.psum([one] * self.n_shards) == self.n_shards
 
     def step(self, state: TPCCState, batch: NewOrderBatch):
         """Returns (state, totals), or (state, committed mask) under
@@ -72,38 +85,76 @@ class TwoPCEngine:
         tensors are updated in place."""
         if self.strict_stock:
             return self._step_strict(state, batch)
-        state, delta, total = tpcc.apply_neworder(
-            state, batch, self.scale, w_lo=0, w_hi=self.w_per_shard)
-        # prepare phase: every remote write applies synchronously at its
-        # owner (the gathered outbox of one shard is its own)
-        dst = delta.dst_w
-        own = delta.valid & (dst >= 0) & (dst < self.w_per_shard)
-        state = tpcc.apply_stock_updates(state, dst, delta.i_id, delta.qty,
-                                         own, torch.ones_like(own))
-        return state, total
+        W = self.w_per_shard
+        deltas, totals = [], []
+        for r, b in enumerate(self._parts(batch)):
+            _, delta, total = tpcc.apply_neworder(
+                shard_view(state, r, W), b, self.scale, w_lo=r * W,
+                w_hi=(r + 1) * W)
+            deltas.append(delta)
+            totals.append(total)
+        # prepare phase: every remote write is routed to its owner and
+        # applies synchronously
+        state = gather_and_apply_outbox(state, cat_shards(deltas), W,
+                                        self.n_shards)
+        # commit barrier: unanimous vote
+        committed = self._vote()
+        return state, torch.where(committed, cat_shards(totals), 0.0)
 
     def _step_strict(self, state: TPCCState, batch: NewOrderBatch):
+        W = self.w_per_shard
+        # prepare phase: broadcast the full write intent, the global batch
+        # and the global state; the shards' views gather back into the
+        # global tables, with no copy
+        g_batch = collectives.all_gather_tree(self._parts(batch))
+        g_state = collectives.all_gather_tree(
+            [shard_view(state, r, W) for r in range(self.n_shards)])
         # serializable execution: the WHOLE batch in timestamp order with
-        # the entire stock as one escrow share; the gathered state of one
-        # shard is its own, so no table is copied
-        state, _, _, _, ok = tpcc.apply_neworder_escrow(
-            state, state.s_quantity, torch.zeros_like(state.s_quantity),
-            batch, self.scale, w_lo=0, w_hi=self.scale.n_warehouses,
+        # the entire stock as one escrow share, once (the reference's R
+        # replicas replay it identically)
+        _, _, _, _, ok = tpcc.apply_neworder_escrow(
+            g_state, g_state.s_quantity, torch.zeros_like(g_state.s_quantity),
+            g_batch, self.scale, w_lo=0, w_hi=self.scale.n_warehouses,
             replica=0, num_replicas=1, admission="kernel")
-        return state, ok
+        # commit: each shard keeps its slice of the verdicts, under the
+        # unanimous vote
+        return state, ok & self._vote()
 
     def read_step(self, state: TPCCState, batch: OrderStatusBatch
                   ) -> ramp.OrderStatusResult:
-        """Order-Status under 2PC-style synchronized visibility (on one
-        shard the lock grant and the release vote are the identity): the
-        RAMP read, through the fused read."""
-        return ramp.apply_order_status(state, batch, w_lo=0)
+        """Order-Status under 2PC-style synchronized visibility: every
+        shard announces its read intent and waits for the global grant (an
+        all-gather), reads its slice through the fused read, then the
+        release vote (a ``psum``) gates the results: ``found & ok``."""
+        parts = self._parts(batch)
+        granted = collectives.all_gather(
+            [torch.ones((b.w.shape[0],), dtype=torch.int32,
+                        device=self.device) for b in parts])
+        res = cat_shards([ramp.apply_order_status(
+            shard_view(state, r, self.w_per_shard), b,
+            w_lo=r * self.w_per_shard) for r, b in enumerate(parts)])
+        ok = self._vote() & (granted.sum() > 0)
+        return res._replace(found=res.found & ok)
 
-    def hot_path_collectives(self, batch_per_shard: int = 8):
-        raise NotImplementedError(_COLLECTIVES)
+    def hot_path_collectives(self, batch_per_shard: int = 8
+                             ) -> collectives.CollectiveStats:
+        """The collectives of one step at ``batch_per_shard``, on
+        ``init_state``."""
+        state = tpcc.init_state(self.scale, device=self.device)
+        batch = proof_batch(self, batch_per_shard)
+        with collectives.counted() as stats:
+            self.step(state, batch)
+        return stats
 
-    def read_path_collectives(self, batch_per_shard: int = 8):
-        raise NotImplementedError(_COLLECTIVES)
+    def read_path_collectives(self, batch_per_shard: int = 8
+                              ) -> collectives.CollectiveStats:
+        """The collectives of one ``read_step`` at ``batch_per_shard``, on
+        ``init_state``."""
+        state = tpcc.init_state(self.scale, device=self.device)
+        b = proof_batch(self, batch_per_shard)
+        with collectives.counted() as stats:
+            self.read_step(state, OrderStatusBatch(b.w, b.d, b.c))
+        return stats
 
 
 def _conflict_rounds(batch: NewOrderBatch, districts: int) -> int:
@@ -153,7 +204,7 @@ def run_closed_loop_2pc(engine: TwoPCEngine, state: TPCCState, *,
 
     if engine.strict_stock:
         # warmup on a copy so every batch is timed exactly once
-        warm, _ = engine.step(_copy(state), batches[0])
+        warm, _ = engine.step(tpcc.copy_tree(state), batches[0])
         synchronize(engine.device)
         del warm
 

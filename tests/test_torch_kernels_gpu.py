@@ -503,3 +503,43 @@ def _check_rwkv6_scan(cuda, B, T, H, hd, dtype, s0_scale, decay):
     torch.testing.assert_close(
         s_T, want_s,
         **(dict(rtol=5e-2, atol=5e-2) if bf else dict(rtol=2e-4, atol=2e-4)))
+
+
+@pytest.mark.parametrize("layout", ["sparse", "dense"])
+def test_four_replicas_through_each_kernel_match_the_plain_path(cuda, layout):
+    """Escrow with R = 4 replicas on one card (``Engine(n_shards=4)``):
+    through the megastep (B2) and through escrow_admit (B1), a launch a
+    shard a batch, bit-equal to each other, to the plain path on the card
+    and to the plain path on the CPU, and audited."""
+    from repro_torch.txn import run_loop
+    from repro_torch.txn.engine import Engine
+
+    scale = tpcc.TPCCScale(n_warehouses=8, districts=4, customers=8,
+                           n_items=64, order_capacity=64, max_lines=15)
+    kw = dict(batch_per_shard=16, n_batches=6, remote_frac=0.3,
+              merge_every=2, refresh_every=1, seed=5, item_skew=1.2)
+    runs = {}
+    for dev, admission, effects in (("cpu", "scan", "scan"),
+                                    (cuda, "scan", "scan"),
+                                    (cuda, "kernel", "fused"),
+                                    (cuda, "kernel", "scan")):
+        e = Engine(scale, stock_invariant="strict", escrow_layout=layout,
+                   hot_items=4, admission=admission, effects=effects,
+                   device=dev, n_shards=4)
+        state = tpcc.init_state(scale, device=dev)
+        state.s_quantity.mul_(3)
+        escrow_admit_cuda.launches = txn_megastep_cuda.launches = 0
+        s, esc, st = run_loop(e, state, audit=True, **kw)
+        runs[(str(dev), admission, effects)] = (
+            [x.cpu() for x in (*s, *esc)],
+            (st.neworders, st.aborts, st.cold_rejects, st.refreshes),
+            (escrow_admit_cuda.launches, txn_megastep_cuda.launches))
+    want, counts, _ = runs[("cpu", "scan", "scan")]
+    assert counts[0] > 0 and counts[1] > 0
+    per_run = 4 * (kw["n_batches"] + 1)    # a shard a batch, and the warm-up
+    expect = {("scan", "scan"): (0, 0), ("kernel", "fused"): (0, per_run),
+              ("kernel", "scan"): (per_run, 0)}
+    for key, (got, c, launches) in runs.items():
+        assert all(torch.equal(x, y) for x, y in zip(got, want)), key
+        assert c == counts, key
+        assert launches == expect[key[1:]], (key, launches)

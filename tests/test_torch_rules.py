@@ -21,6 +21,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.txn import tpcc  # noqa: E402
+from repro_torch.txn.drivers import run_loop  # noqa: E402
 from repro_torch.txn.engine import single_host_engine  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -105,21 +106,28 @@ def test_serving_entry_points_raise_without_cuda(monkeypatch):
 
 def test_unported_paths_raise_not_implemented():
     scale = tpcc.TPCCScale()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        single_host_engine(scale, stock_invariant="strict", device="cpu",
-                           n_shards=2)
+    # multi-shard state is ported: two shards build and run a batch
+    two_shards = single_host_engine(scale, stock_invariant="strict",
+                                    admission="scan", device="cpu",
+                                    n_shards=2)
+    assert two_shards.w_per_shard == scale.n_warehouses // 2
+    _, _, st2 = run_loop(two_shards, tpcc.init_state(scale, device="cpu"),
+                         batch_per_shard=2, n_batches=1)
+    assert st2.neworders + st2.aborts == 4
     # the dense escrow layout is ported: it builds
     dense = single_host_engine(scale, stock_invariant="strict",
                                escrow_layout="dense", device="cpu")
     assert dense.escrow_layout == "dense"
     # a COORDINATION_REQUIRED plan is refused as the reference refuses it,
-    # pointing to the 2PC fallback; that runs on one shard
+    # pointing to the 2PC fallback; that runs on two shards too
     with pytest.raises(ValueError, match="plan_engine"):
         single_host_engine(scale, stock_invariant="serial", device="cpu")
-    from repro_torch.txn.twopc import TwoPCEngine
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TwoPCEngine(scale, strict_stock=True, device="cpu", n_shards=2)
-    from repro_torch.txn.drivers import run_loop
+    from repro_torch.txn.twopc import TwoPCEngine, run_closed_loop_2pc
+    _, st2 = run_closed_loop_2pc(
+        TwoPCEngine(scale, strict_stock=True, device="cpu", n_shards=2),
+        tpcc.init_state(scale, device="cpu"), batch_per_shard=2,
+        n_batches=1)
+    assert st2.committed + st2.aborted == 4
     eng = single_host_engine(scale, device="cpu")
     for kw in (dict(fused=True), dict(retry_cap=4), dict(liveness=object()),
                dict(obs=object())):

@@ -157,9 +157,15 @@ def test_plan_engine_three_choices():
         is JCoordClass.REQUIRED and jtwo.strict_stock
     with pytest.raises(ValueError, match="plan_engine"):
         Engine(scale, stock_invariant="serial", device="cpu")
-    for method in (two.hot_path_collectives, two.read_path_collectives):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            method(8)
+    # with two shards both 2PC paths carry collectives (the prepare
+    # all-gather and the vote; the read's grant and release)
+    two2 = plan_engine(scale, stock_invariant="serial", device="cpu",
+                       n_shards=2)
+    assert two2.n_shards == 2 and two2.w_per_shard == 2
+    for method in (two2.hot_path_collectives, two2.read_path_collectives):
+        stats = method(8)
+        assert stats.total_ops > 0 and stats.counts["all-reduce"] >= 1
+        assert "NONE" not in stats.describe()
 
 
 def test_escrow_vs_2pc_same_strict_semantics():

@@ -2,8 +2,8 @@
 """Drive the PyTorch port's main paths on one CUDA card: TPC-C New-Order
 alone, the five-transaction mix, the anti-entropy merge of divergent
 replica snapshots, LM serving (a dense and an RWKV-6 model), the dense
-escrow layout, the coordinated 2PC baseline, and TPC-C as four replicas on
-one card.
+escrow layout, the coordinated 2PC baseline, TPC-C as four replicas on
+one card, and their cold-retry ring.
 
     python3 chip_smoke.py
 
@@ -108,7 +108,20 @@ six CUDA kernels of the port from ``src/repro_torch/kernels/csrc`` (one
      the other shards' slices bit-unchanged; anti-entropy, the refreshes
      and both 2PC paths call collectives, by ``txn/collectives.py``'s
      counts); and a small four-shard run through the kernels on the card,
-     bit-equal to the plain path on the CPU.
+     bit-equal to the plain path on the CPU;
+ 17. the cold-retry ring on the four replicas: phase 16's deployment under
+     the reference's failure-row traffic (half the lines remote, Zipf 1.2),
+     the specification's initial stock and one hot item a warehouse, where
+     cold cells contend across replicas (at phase 16's traffic the cold
+     tier rejects nothing, so the ring would idle); through txn_megastep
+     with no ring, ``retry_max`` 0 and 3, reservations, no final flush and
+     a dead replica, each held to the JAX package's counts, ring lanes and
+     reserved lanes and strictly audited; ``retry_max=0`` bit-equal to no
+     ring; ``retry_max=3`` through escrow_admit, the plain path on the card
+     and the plain path on the CPU, bit-equal to txn_megastep; a run cut in
+     two and resumed through ``retry=``, card against CPU; one ring drain
+     under the card's host-sync check; txn/s in turns and the device time
+     of one ring drain beside one plain drain.
 
 The deployment is TPC-C at the specification's per-warehouse cardinalities
 (TPC-C standard specification, clause 4.3.3.1: 10 districts, 3000 customers
@@ -124,7 +137,7 @@ the launcher's seeded prompts of 2-512 tokens, 32 new tokens each and
 SmolLM's context of 2048 as the KV capacity.
 
 Launch counters are set to 0 just before each main path (phases 3-4, 7,
-8, 10, 11, 12, 14, 15 and each run of 16) and read just after. The
+8, 10, 11, 12, 14, 15 and each run of 16 and 17) and read just after. The
 second-to-last line of output is the kernels' JSON record; the last line
 is the device record. Any failure exits non-zero; so does a machine
 without a CUDA device.
@@ -1441,6 +1454,249 @@ def replicas_on_one_card(scale):
     return launches
 
 
+# phase 17: the cold-retry ring. Phase 16's traffic (1% remote lines, the
+# default hot set, stock x20) sends no cold line that an owner rejects, so
+# the ring would idle; it gets work where cold cells contend across
+# replicas: the reference's failure-row traffic (half the lines remote,
+# Zipf 1.2; benchmarks/paper_figures.py's escrow_failures row), the
+# specification's initial stock and a hot set of one item a warehouse
+RING = dict(remote_frac=0.5, item_skew=ITEM_SKEW, merge_every=MERGE_EVERY,
+            refresh_every=REFRESH_EVERY, seed=SEED)
+RING_HOT_ITEMS = 1
+RING_CAP = 256
+RING_SPLIT = 16            # the resume: 16 batches, then 16 from seed 1
+RING_RUNS = {"none": {},
+             "rm0": dict(retry_cap=RING_CAP, retry_max=0),
+             "rm3": dict(retry_cap=RING_CAP, retry_max=3),
+             "reserve": dict(retry_cap=RING_CAP, retry_max=3,
+                             retry_reserve=1),
+             "noflush": dict(retry_cap=RING_CAP, retry_max=3,
+                             final_flush=False),
+             "alive": dict(retry_cap=RING_CAP, retry_max=3,
+                           alive=[1, 1, 0, 1])}
+# The JAX package's counts for these runs at this width: (committed,
+# aborted, cold rejects, refreshes, ring lanes an owner, reserved lanes).
+# Produced on the CPU (4 simulated devices, 71 s, 23 GB of host memory) by
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_retry.py
+RING_REFERENCE = {
+    "none": (1332, 6860, 481, 4, None, None),
+    "rm0": (1332, 6860, 481, 4, [0, 0, 0, 0], 0),
+    "rm3": (1323, 6869, 446, 4, [103, 55, 106, 84], 0),
+    "reserve": (1323, 6869, 446, 4, [103, 55, 106, 84], 1),
+    "noflush": (1323, 6869, 98, 4, [103, 55, 106, 84], 0),
+    "alive": (1295, 6897, 417, 4, [90, 58, 98, 74], 0),
+    "split": (900, 3196, 0, 2, [77, 48, 64, 51], 0),
+    "resume": (406, 3690, 415, 2, [96, 65, 86, 70], 0),
+}
+
+
+def cold_retry_ring(scale):
+    """Phase 17: the cold-retry ring on ``SHARDS`` replicas at full width
+    (phase 16's deployment under ``RING``'s traffic, ``RING_HOT_ITEMS``
+    hot items a warehouse, the specification's stock), launch counts from
+    0 before each run. Every row of ``RING_RUNS`` through the megastep
+    (B2), its counts, ring lanes and reserved lanes held to the JAX
+    package's (``RING_REFERENCE``) and strictly audited; ``retry_max=0``
+    bit-equal to no ring; ``retry_max=3`` through escrow_admit (B1),
+    through the plain path on the card and through the plain path on the
+    CPU, each bit-equal to the B2 run (state, escrow, ring, counts); a run
+    of ``RING_SPLIT`` batches with ``final_flush=False`` resumed through
+    ``retry=`` for as many more, bit-equal to the CPU's two calls; one
+    retry drain with the card's host-sync check on; txn/s of no ring,
+    ``retry_max=0`` and ``retry_max=3`` in turns; the device time of one
+    ``drain_strict_retry`` against one ``drain_strict`` on the same window,
+    and of one owner's stock apply of that window against the apply of its
+    own entries alone. Returns each kernel's launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.escrow_admit import escrow_admit_cuda
+    from repro_torch.kernels.txn_megastep import txn_megastep_cuda
+    from repro_torch.txn import assert_audit, init_state, run_loop, tpcc
+    from repro_torch.txn.drivers import (_OutboxWindow,
+                                         generate_neworder_stream)
+    from repro_torch.txn.engine import Engine
+
+    R, bps = SHARDS, BATCH // SHARDS
+    launches = dict.fromkeys(("escrow_admit", "txn_megastep"), 0)
+    cpu = lambda t: type(t)(*(x.cpu() for x in t))
+    card = lambda t: type(t)(*(x.cuda() for x in t))
+    q0 = init_state(scale, seed=SEED).s_quantity
+
+    def engine(admission="kernel", effects="fused", device=None):
+        return Engine(scale, stock_invariant="strict",
+                      hot_items=RING_HOT_ITEMS, admission=admission,
+                      effects=effects, device=device, n_shards=R)
+
+    def run(tag, eng, state=None, esc=None, n_batches=N_BATCHES, audit=True,
+            **over):
+        """One run of ``RING_RUNS[tag]``; returns (state, escrow, stats,
+        ring, (B1, B2) launches)."""
+        knobs = dict(RING_RUNS[tag], **over)
+        if "alive" in knobs:
+            knobs["alive"] = torch.tensor(knobs["alive"], dtype=torch.int32,
+                                          device=eng.device)
+        if state is None:
+            state = init_state(scale, seed=SEED, device=eng.device)
+        escrow_admit_cuda.launches = txn_megastep_cuda.launches = 0
+        s, e, m, ring = run_loop(
+            eng, state, esc, batch_per_shard=bps, n_batches=n_batches,
+            return_retry=True, **dict(RING, **knobs))
+        got = (escrow_admit_cuda.launches, txn_megastep_cuda.launches)
+        if audit:
+            assert_audit(s, escrow=e, initial_stock=q0.to(eng.device),
+                         strict_stock=True)
+        if eng.device.type == "cuda":
+            launches["escrow_admit"] += got[0]
+            launches["txn_megastep"] += got[1]
+        return s, e, m, ring, got
+
+    def counts(m, ring):
+        if ring is None:
+            return (m.neworders, m.aborts, m.cold_rejects, m.refreshes,
+                    None, None)
+        return (m.neworders, m.aborts, m.cold_rejects, m.refreshes,
+                ring.valid.sum(1).tolist(), int(ring.reserved.sum()))
+
+    def check(tag, m, ring, got, want_launches):
+        c = counts(m, ring)
+        print(f"ring [{tag}]: {c[0]} committed, {c[1]} aborted, {c[2]} cold "
+              f"rejects, {c[3]} refreshes, ring {c[4]}, {c[5]} reserved; "
+              f"{m.throughput:,.0f} txn/s; escrow_admit/txn_megastep "
+              f"launches={got}; strict audit OK")
+        if c != RING_REFERENCE[tag] or got != want_launches:
+            raise AssertionError(f"ring [{tag}]: {c} launches {got}, want "
+                                 f"the JAX package's {RING_REFERENCE[tag]} "
+                                 f"and launches {want_launches}")
+
+    print(f"ring: {R} shards of {scale.n_warehouses // R} warehouses, {bps} "
+          f"New-Orders a shard a batch, {RING['remote_frac']:.0%} remote "
+          f"lines, {RING_HOT_ITEMS} hot item a warehouse, the spec's stock, "
+          f"retry_cap={RING_CAP}")
+    b2 = engine()
+    per_run = (0, R * (N_BATCHES + 1))
+    tput = {}
+    runs = {}
+    for tag in RING_RUNS:
+        s, e, m, ring, got = run(tag, b2)
+        check(tag, m, ring, got, per_run)
+        tput.setdefault(tag, []).append(m.throughput)
+        if tag == "alive" and (int(e.shares[2].sum()) != 0
+                               or int(e.shares[0].sum()) <= 0):
+            raise AssertionError("ring [alive]: the dead slot holds shares")
+        if tag in ("none", "rm0", "rm3"):
+            runs[tag] = (s, e, m, ring)
+        del s, e
+    s_n, e_n, m_n, _ = runs.pop("none")
+    s_0, e_0, m_0, _ = runs.pop("rm0")
+    bad = _same(s_n, s_0) + _same(e_n, e_0)
+    if bad or counts(m_n, None)[:4] != counts(m_0, None)[:4]:
+        raise AssertionError(f"ring: retry_max=0 != no ring: {bad}")
+    print("ring: retry_max=0 bit-equal to no ring (state, escrow, counts)")
+    del s_n, e_n, s_0, e_0
+    torch.cuda.empty_cache()
+
+    s3, e3, m3, r3 = runs.pop("rm3")
+    for tag, eng, want in (
+            ("escrow_admit", engine("kernel", "scan"), (per_run[1], 0)),
+            ("plain path on the card", engine("scan", "scan"), (0, 0)),
+            ("plain path on the CPU", engine("scan", "scan", "cpu"),
+             (0, 0))):
+        s, e, m, ring, got = run("rm3", eng)
+        bad = _same(s3, card(s)) + _same(e3, card(e)) + _same(r3, card(ring))
+        if bad or counts(m, ring) != counts(m3, r3) or got != want:
+            raise AssertionError(f"ring, retry_max=3: {tag} != txn_megastep:"
+                                 f" {bad} {counts(m, ring)} launches {got}")
+        print(f"ring, retry_max=3 through {tag}: bit-equal to txn_megastep "
+              f"(state, escrow, ring, counts {counts(m, ring)}); "
+              f"{m.throughput:,.0f} txn/s; launches={got}")
+        del s, e, ring
+    torch.cuda.empty_cache()
+
+    # final_flush=False for RING_SPLIT batches, then a resume through retry=
+    ends = []
+    for eng in (b2, engine("scan", "scan", "cpu")):
+        split = R * (RING_SPLIT + 1)
+        s, e, m, ring, got = run("noflush", eng, n_batches=RING_SPLIT)
+        if eng is b2:
+            check("split", m, ring, got, (0, split))
+        s, e, m, ring, got = run("noflush", eng, s, e, n_batches=RING_SPLIT,
+                                 seed=SEED + 1, retry=ring, final_flush=True)
+        if eng is b2:
+            check("resume", m, ring, got, (0, split))
+        ends.append((cpu(s), cpu(e), cpu(ring), counts(m, ring)))
+    bad = [f"{i}: {_same(x, y)}" for i, (x, y) in enumerate(zip(*ends))
+           if i < 3 and _same(x, y)]
+    if bad or ends[0][3] != ends[1][3]:
+        raise AssertionError(f"ring: the resume on the card != the CPU's: "
+                             f"{bad}")
+    print(f"ring: {RING_SPLIT} batches with final_flush=False, resumed "
+          f"through retry= for {RING_SPLIT} more: card == CPU (state, "
+          f"escrow, ring, counts {ends[0][3]})")
+    del ends
+
+    # the next window after the retry_max=3 run: the ring's drain reads
+    # nothing back to the host, and its device time beside the plain drain
+    stream = generate_neworder_stream(
+        b2, batch_per_shard=bps, n_batches=N_BATCHES + MERGE_EVERY,
+        remote_frac=RING["remote_frac"], rng=np.random.default_rng(SEED),
+        item_skew=ITEM_SKEW)
+    work = tpcc.copy_tree(s3)
+    window = None
+    for batch in stream[N_BATCHES:]:
+        _, _, outbox, _, _ = b2.neworder_escrow_step(work, e3, batch)
+        if window is None:
+            window = _OutboxWindow(outbox, MERGE_EVERY)
+        window.put(outbox)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, ring, final = b2.drain_strict_retry(work, window.flat(), r3, 3, 1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print(f"ring: one drain_strict_retry under the host-sync check (none "
+          f"made): {int(final.sum())} final rejects, ring "
+          f"{ring.valid.sum(1).tolist()}")
+    drains = {"drain_strict": lambda: b2.drain_strict(work, window.flat()),
+              "drain_strict_retry": lambda: b2.drain_strict_retry(
+                  work, window.flat(), r3, 3, 1)}
+    drain_ms = {k: [] for k in drains}
+    for k in list(drains) * 2:
+        drain_ms[k].append(_time_ms(drains[k], 10))
+    print(f"ring, device time of one drain of a {MERGE_EVERY}-batch window "
+          f"(ms, in turns): {json.dumps(drain_ms)}")
+    # what a drain's time is made of: owner 0's stock apply of the gathered
+    # window as the drain makes it (every entry it does not own adds 0 at
+    # its cell (0, 0)), and the same apply of its own entries alone
+    g = window.flat()
+    own = g.valid & (g.dst_w < b2.w_per_shard)
+    mine = own.nonzero()[:, 0]
+    view = b2.shard_view(work, 0)
+    apply_ms = {
+        "whole window": _time_ms(lambda: tpcc.apply_stock_updates(
+            view, g.dst_w, g.i_id, g.qty, own, own, restock=False), 10),
+        f"its {len(mine)} entries": _time_ms(
+            lambda: tpcc.apply_stock_updates(
+                view, g.dst_w[mine], g.i_id[mine], g.qty[mine], own[mine],
+                own[mine], restock=False), 10)}
+    print(f"ring, device time of owner 0's stock apply of the "
+          f"{len(own)}-entry window (ms): {json.dumps(apply_ms)}")
+    del work, window, s3, e3, r3
+    torch.cuda.empty_cache()
+
+    # txn/s in turns: the first round above, then rm3, rm0, none again
+    for tag in ("rm3", "rm0", "none"):
+        s, e, m, ring, got = run(tag, b2, audit=False)
+        if counts(m, ring) != RING_REFERENCE[tag] or got != per_run:
+            raise AssertionError(f"ring [{tag}], second run: "
+                                 f"{counts(m, ring)} launches {got}")
+        tput[tag].append(m.throughput)
+        del s, e
+    print(f"ring, txn/s (runs in turns none, rm0, rm3, ..., rm3, rm0, none):"
+          f" {json.dumps({k: tput[k] for k in ('none', 'rm0', 'rm3')})}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1671,6 +1927,12 @@ def main() -> int:
     for k, n in replicas_on_one_card(scale).items():
         launches[k] += n
     print(f"replicas: phase 16 in {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 17: the cold-retry ring on replicas, launch counts from 0 -----
+    t0 = time.perf_counter()
+    for k, n in cold_retry_ring(scale).items():
+        launches[k] += n
+    print(f"ring: phase 17 in {time.perf_counter() - t0:.1f} s")
     print(f"launches, every main path: {json.dumps(launches)}")
 
     for k in ("ramp_read", "lattice_merge", "flash_attention", "rwkv6_scan"):

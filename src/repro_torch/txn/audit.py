@@ -12,6 +12,9 @@ condition from the table arrays —
                     to s_quantity at every hot cell with a sorted-unique
                     key table (sparse HotSetEscrow) or at every cell
                     (dense EscrowCounter).
+
+:func:`check_cold_ledger` checks a cold-tier ledger (the retry ring's
+accounting) the same way.
 """
 
 from __future__ import annotations
@@ -112,3 +115,27 @@ def assert_audit(state, **kwargs) -> AuditReport:
     if not rep.ok:
         raise AssertionError(f"TPC-C audit failed: {rep.failures}")
     return rep
+
+
+def check_cold_ledger(ledger: dict, *, quiescent: bool = False) -> None:
+    """Validate a cold-tier ledger dict, reservations included.
+
+    Always: every optimistically admitted cold line is accounted for
+    (``exact``: sent == applied + final rejects + queued + in the ring), and
+    every granted reservation is completed or still in a ring
+    (``reservations_exact``). With ``quiescent=True`` nothing may still be
+    in flight: ``queued``, ``in_ring`` and ``reserved_in_ring`` are 0.
+    Raises ``AssertionError`` naming the ledger.
+    """
+    if not ledger["exact"]:
+        raise AssertionError("cold ledger leak: sent != applied + final + "
+                             f"queued + in_ring: {ledger}")
+    if not ledger.get("reservations_exact", True):
+        raise AssertionError("reservation ledger leak: granted != "
+                             f"completed + in_ring: {ledger}")
+    if quiescent:
+        if ledger["queued"] != 0 or ledger["in_ring"] != 0:
+            raise AssertionError(f"ledger not quiescent: {ledger}")
+        if ledger.get("reserved_in_ring", 0) != 0:
+            raise AssertionError("reservation still in flight at "
+                                 f"quiescence: {ledger}")

@@ -15,6 +15,10 @@
   strict drain per window, and the share refresh every ``refresh_every``
   drains or, with ``refresh_abort_rate``, as soon as the escrow abort rate
   since the last refresh crosses it (one host read per window);
+* **cold-retry ring** — with ``retry_cap`` > 0 (sparse layout), each
+  owner keeps the remote-cold entries its drain rejected in a bounded ring
+  and re-presents them for up to ``retry_max`` windows, with optional
+  owner-granted reservations (``retry_reserve``);
 * **audit** — ``audit=True`` runs the consistency oracle on the final
   state.
 
@@ -152,7 +156,6 @@ def _adaptive_refresh_due(aborts_since, txns_since, rate: float) -> bool:
 
 _NOT_PORTED = {
     "fused": "the fused executor with CUDA graphs is ROADMAP Queue A item 5",
-    "retry_cap": "the cold-retry ring is ROADMAP Queue A item 2",
     "liveness": "liveness is ROADMAP Queue A item 9",
     "obs": "the observability plane is ROADMAP Queue A item 9",
 }
@@ -165,8 +168,9 @@ def run_loop(engine, state: TPCCState, esc=None, *,
              read_frac: float = 0.25, item_skew: float = 0.0, seed: int = 0,
              payments: bool = False, reads: bool = False,
              deliveries: bool = False, audit: bool = False, alive=None,
-             fused: bool = False, retry_cap: int = 0, liveness=None,
-             obs=None) -> tuple[TPCCState, object, MixStats]:
+             fused: bool = False, retry_cap: int = 0, retry_max: int = 0,
+             retry=None, retry_reserve: int = 0, final_flush: bool = True,
+             return_retry: bool = False, liveness=None, obs=None):
     """Drive the engine's plan-selected regime over a pre-generated stream,
     batch by batch.
 
@@ -178,8 +182,18 @@ def run_loop(engine, state: TPCCState, esc=None, *,
     With ``reads`` the stream is the mix's (:func:`generate_mix_batches`),
     whose Payment batches are drawn whether or not ``payments`` is on, as in
     the reference. ``alive`` ([n_shards] mask) threads share reclamation
-    into every refresh. ``fused``, ``retry_cap``, ``liveness`` and ``obs``
-    belong to later slices and raise ``NotImplementedError``.
+    into every refresh. ``fused``, ``liveness`` and ``obs`` belong to later
+    slices and raise ``NotImplementedError``.
+
+    The cold-retry ring (escrow regime, sparse layout): ``retry_cap`` > 0
+    gives each owner a ring of that many lanes, whose owner-rejected
+    remote-cold entries are re-presented for up to ``retry_max`` drain
+    windows before they count as FINAL ``cold_rejects``;
+    ``retry_reserve=1`` grants a last-chance entry a reservation out of
+    the leftover stock instead. ``retry`` resumes a ring;
+    ``final_flush=False`` leaves the entries still pending at the end in
+    the returned ring instead of counting them as rejects (one host read);
+    ``return_retry=True`` appends the ring to the return tuple.
 
     Returns ``(state, escrow-or-None, MixStats)``; ``stats.neworders``
     counts COMMITTED New-Orders (escrow aborts in ``stats.aborts``,
@@ -187,12 +201,15 @@ def run_loop(engine, state: TPCCState, esc=None, *,
     ``stats.cold_rejects``, 0 in the dense layout, which has no cold
     tier).
     """
-    asked = dict(fused=fused, retry_cap=retry_cap > 0,
-                 liveness=liveness is not None, obs=obs is not None)
+    asked = dict(fused=fused, liveness=liveness is not None,
+                 obs=obs is not None)
     for knob, on in asked.items():
         if on:
             raise NotImplementedError(_NOT_PORTED[knob])
     escrow = engine.stock_regime is CoordClass.ESCROW
+    if retry_cap > 0 and not escrow:
+        raise ValueError("retry_cap > 0 requires the escrow regime "
+                         "(the retry ring holds strict cold-tier entries)")
     if escrow and esc is None:
         esc = engine.init_escrow(state)
     q0 = state.s_quantity.clone() if audit else None
@@ -212,11 +229,13 @@ def run_loop(engine, state: TPCCState, esc=None, *,
                                        batch_per_shard)
                  for _ in range(n_batches)] if payments else None
         os_b = sl_b = None
-    state, esc, stats = _dispatch_loop(
+    state, esc, stats, retry = _dispatch_loop(
         engine, state, esc, no_b, pay_b, os_b, sl_b,
         batch_per_shard=batch_per_shard, merge_every=merge_every,
         refresh_every=refresh_every, refresh_abort_rate=refresh_abort_rate,
-        deliveries=deliveries, escrow=escrow, alive=alive)
+        deliveries=deliveries, escrow=escrow, alive=alive,
+        retry_cap=retry_cap, retry_max=retry_max, retry=retry,
+        retry_reserve=retry_reserve, final_flush=final_flush)
     if audit:
         from .audit import assert_audit
         if escrow:
@@ -224,20 +243,34 @@ def run_loop(engine, state: TPCCState, esc=None, *,
                          strict_stock=True)
         else:
             assert_audit(state)
+    if return_retry:
+        return state, esc, stats, retry
     return state, esc, stats
 
 
-def _drain(engine, state, window: _OutboxWindow, escrow: bool):
+def _drain(engine, state, window: _OutboxWindow, escrow: bool, ring=None,
+           retry_max=0, retry_reserve=0):
+    """One drain of the window, through ``ring`` where there is one:
+    (state, rejects or None, the ring after it)."""
+    if ring is not None:
+        state, ring, rej = engine.drain_strict_retry(
+            state, window.flat(), ring, retry_max, retry_reserve)
+        return state, rej, ring
     if escrow:
-        return engine.drain_strict(state, window.flat())
-    return engine.anti_entropy(state, window.flat()), None
+        return (*engine.drain_strict(state, window.flat()), None)
+    return engine.anti_entropy(state, window.flat()), None, None
 
 
 def _dispatch_loop(engine, state, esc, no_b, pay_b, os_b, sl_b, *,
                    batch_per_shard, merge_every, refresh_every,
-                   refresh_abort_rate, deliveries, escrow, alive):
+                   refresh_abort_rate, deliveries, escrow, alive,
+                   retry_cap=0, retry_max=0, retry=None, retry_reserve=0,
+                   final_flush=True):
     """The per-batch dispatch path: one engine call per transaction type
     per batch."""
+    ring = None                  # the live cold-retry ring, where there is one
+    if escrow and retry_cap > 0:
+        ring = engine.init_retry(retry_cap) if retry is None else retry
     n_batches = len(no_b)
     B = batch_per_shard * engine.n_shards
     reads = os_b is not None
@@ -264,7 +297,10 @@ def _dispatch_loop(engine, state, esc, no_b, pay_b, os_b, sl_b, *,
         warm, _ = engine.delivery_step(warm)
     window = _OutboxWindow(outbox, rows)
     window.put(outbox)
-    warm, _ = _drain(engine, warm, window, escrow)
+    # the warm-up drains through a fresh ring, never the live one
+    warm, _, _ = _drain(engine, warm, window, escrow,
+                        None if ring is None else engine.init_retry(retry_cap),
+                        retry_max, retry_reserve)
     if escrow:
         engine.refresh_escrow(warm, wesc, alive)
     window.clear()
@@ -313,7 +349,8 @@ def _dispatch_loop(engine, state, esc, no_b, pay_b, os_b, sl_b, *,
         if len(window) == merge_every or i == n_batches - 1:
             # one batched drain of the whole window (Definition 3:
             # convergence may lag the hot path, but must happen)
-            state, rej = _drain(engine, state, window, escrow)
+            state, rej, ring = _drain(engine, state, window, escrow, ring,
+                                      retry_max, retry_reserve)
             if escrow:
                 rej_acc = rej_acc + rej.sum().to(torch.int32)
             window.clear()
@@ -342,8 +379,12 @@ def _dispatch_loop(engine, state, esc, no_b, pay_b, os_b, sl_b, *,
         stats.neworders = int(commit_acc)
         stats.aborts = B * n_batches - stats.neworders
         stats.cold_rejects = int(rej_acc)
+        if ring is not None and final_flush:
+            # entries still in the ring never got their last window: they
+            # count as final rejects (one host read)
+            stats.cold_rejects += int(ring.valid.sum())
     stats.reads_found = int(found_acc)
     stats.fractures_observed = int(fract_acc)
     stats.lines_repaired = int(rep_acc)
     stats.deliveries = int(del_acc)
-    return state, esc, stats
+    return state, esc, stats, retry if ring is None else ring

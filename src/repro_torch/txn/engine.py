@@ -358,6 +358,33 @@ class Engine:
         return state, torch.zeros((self.n_shards,), dtype=torch.int32,
                                   device=self.device)
 
+    def init_retry(self, retry_cap: int) -> tpcc.RetryState:
+        """Every owner's empty bounded retry ring (``[n_shards, retry_cap]``
+        lanes, row r owner r's) for :meth:`drain_strict_retry`."""
+        self._require_escrow()
+        ring = tpcc.empty_retry(retry_cap, self.device)
+        return tpcc.RetryState(*(x[None].repeat(self.n_shards, 1)
+                                 for x in ring))
+
+    def drain_strict_retry(self, state: TPCCState, outbox: StockDelta,
+                           retry: tpcc.RetryState, retry_max=0, reserve=0
+                           ) -> tuple[TPCCState, tpcc.RetryState,
+                                      torch.Tensor]:
+        """:meth:`drain_strict` with the bounded cold-retry ring: an
+        owner-rejected remote-cold entry is re-presented for up to
+        ``retry_max`` drain windows before it counts as a FINAL reject;
+        ``reserve`` > 0 turns last-chance losers into owner-granted
+        reservations (tpcc.apply_stock_updates_strict_tiered_retry). Both
+        are ints or 0-d tensors. Returns (state, retry', final-reject
+        counts [n_shards]). Sparse layout only: dense has no cold tier."""
+        self._require_escrow()
+        if self.escrow_layout != "sparse":
+            raise RuntimeError("drain_strict_retry requires the sparse "
+                               "(two-tier) escrow layout")
+        return gather_and_apply_outbox_strict_retry(
+            state, outbox, retry, self.hot_keys, self.w_per_shard,
+            self.scale.n_items, self.n_shards, retry_max, reserve)
+
     def escrow_bytes_per_device(self) -> dict:
         """Per-device escrow residency of this engine's layout vs dense."""
         self._require_escrow()
@@ -545,6 +572,32 @@ def gather_and_apply_outbox_strict(state: TPCCState, outbox: StockDelta,
             w_lo=r * w_per_shard)
         rejects.append(rej.reshape(1))
     return state, cat_shards(rejects)
+
+
+def gather_and_apply_outbox_strict_retry(
+        state: TPCCState, outbox: StockDelta, retry: tpcc.RetryState,
+        hot_keys: torch.Tensor, w_per_shard: int, n_items: int,
+        n_shards: int = 1, retry_max=0, reserve=0
+        ) -> tuple[TPCCState, tpcc.RetryState, torch.Tensor]:
+    """The retry-aware sparse strict-drain body: all-gather the outboxes
+    (the ring is owner-local and never gathered), then every owner r
+    strictly applies the entries in its slice, re-presenting row r of the
+    ring first (tpcc.apply_stock_updates_strict_tiered_retry). Returns
+    (state, the new ring, its rows stacked owner-major, final-reject
+    counts [n_shards])."""
+    g = _gather_outbox(outbox, n_shards)
+    rings, finals = [], []
+    for r in range(n_shards):
+        own = _owned_by(g, r, w_per_shard)
+        _, ring, final = tpcc.apply_stock_updates_strict_tiered_retry(
+            shard_view(state, r, w_per_shard), hot_keys, g.dst_w, g.i_id,
+            g.qty, own, torch.ones_like(own),
+            tpcc.RetryState(*(x[r] for x in retry)), n_items,
+            w_lo=r * w_per_shard, retry_max=retry_max, reserve=reserve)
+        rings.append(ring)
+        finals.append(final.reshape(1))
+    return (state, tpcc.RetryState(*(torch.stack(xs) for xs in zip(*rings))),
+            cat_shards(finals))
 
 
 def _replica_slots(n_shards: int, dims: int, device) -> torch.Tensor:

@@ -884,6 +884,171 @@ def apply_stock_updates_strict_tiered(state: TPCCState, hot_keys: Tensor,
     return state, rejects
 
 
+class RetryState(NamedTuple):
+    """Bounded retry ring of one owner shard for its rejected remote-cold
+    outbox entries: ``C`` lanes, ``valid`` marks the live ones. Every entry
+    is a cold cell this owner holds (its own drain rejected it), so
+    re-presenting it needs no routing and no collective. ``tries`` counts
+    the drain windows it has lost; at ``retry_max`` it becomes a FINAL
+    reject. ``reserved`` marks an owner-granted reservation: its stock is
+    already debited, and the next drain frees the lane as applied."""
+
+    dst_w: Tensor     # [C] int32 GLOBAL destination warehouse
+    i_id: Tensor      # [C] int32
+    qty: Tensor       # [C] int32
+    tries: Tensor     # [C] int32 drain windows already lost
+    valid: Tensor     # [C] bool
+    reserved: Tensor  # [C] bool
+
+
+def empty_retry(capacity: int, device=None) -> RetryState:
+    dev = resolve_device(device)
+    i32 = lambda: torch.zeros((capacity,), dtype=torch.int32, device=dev)
+    b = lambda: torch.zeros((capacity,), dtype=torch.bool, device=dev)
+    return RetryState(i32(), i32(), i32(), i32(), b(), b())
+
+
+_INT32_MAX = torch.iinfo(torch.int32).max
+
+
+def _lexsort(keys: tuple[Tensor, ...]) -> Tensor:
+    """``jnp.lexsort``: the permutation sorting by the LAST key, ties by
+    the one before, and so on, full ties in index order (stable sorts,
+    least significant key first)."""
+    order = torch.arange(keys[0].shape[0], device=keys[0].device)
+    for k in keys:
+        order = order[torch.sort(k[order], stable=True).indices]
+    return order
+
+
+def _greedy_admit(cell: Tensor, qty: Tensor, live: Tensor, order: Tensor,
+                  s_quantity: Tensor, dst_w: Tensor, i_id: Tensor,
+                  w_lo: int) -> Tensor:
+    """Per-cell greedy admission in ``order``: a live lane is admitted
+    while its cell's cumulative demand (every live lane sorted before it,
+    itself included) fits the cell's stock. Returns the mask in lane
+    order."""
+    c_s = cell[order]
+    q_s = torch.where(live, qty, 0)[order]
+    v_s = live[order]
+    csum = torch.cumsum(q_s, 0, dtype=torch.int32)
+    seg_start = torch.cat([torch.ones((1,), dtype=torch.bool,
+                                      device=c_s.device),
+                           c_s[1:] != c_s[:-1]])
+    # the cumulative demand within each cell's segment: csum minus the
+    # running total at the segment's start (csum is non-decreasing, so
+    # cummax recovers it)
+    prefix = csum - torch.cummax(torch.where(seg_start, csum - q_s, 0),
+                                 0).values
+    stock_s = s_quantity[torch.where(v_s, dst_w[order] - w_lo, 0).long(),
+                         torch.where(v_s, i_id[order], 0).long()]
+    admit = torch.zeros_like(live)
+    admit[order] = v_s & (prefix <= stock_s)
+    return admit
+
+
+def apply_stock_updates_strict_tiered_retry(
+        state: TPCCState, hot_keys: Tensor, dst_w: Tensor, i_idx: Tensor,
+        qty: Tensor, mask: Tensor, remote: Tensor, retry: RetryState,
+        n_items: int, w_lo: int = 0, retry_max: Tensor | int = 0,
+        reserve: Tensor | int = 0
+        ) -> tuple[TPCCState, RetryState, Tensor]:
+    """:func:`apply_stock_updates_strict_tiered` with this owner's bounded
+    retry ring, in four passes; each reads the stock the one before left:
+
+    0. complete last window's reservations: free their lanes (their stock
+       was debited at grant time, so they count as applied);
+    1. re-present the ring, per cell GREEDY-BY-AGE: lanes sorted by (cell,
+       tries descending, qty ascending) are admitted while the cell's
+       cumulative demand fits its stock. The prefix counts rejected lanes
+       too, so a big lane that never fits blocks the smaller ones behind
+       it (the head-of-line blocking that reservations bound);
+    2. the fresh window exactly as the non-retry drain (per-cell
+       all-or-nothing);
+    3. with ``reserve`` > 0, ring losers whose next loss would be final bid
+       for the leftover stock, per cell smallest first; a grant debits the
+       stock now and rides the ring one more window flagged ``reserved``.
+
+    A ring loser that has now lost ``retry_max`` windows is a FINAL
+    reject; a fresh cold reject enqueues with ``tries`` 0 (or is final at
+    once when ``retry_max`` is 0). Survivors compact ring-first into the
+    ``[C]`` ring; overflow beyond ``C`` is a final reject, not a silent
+    drop. ``retry_max`` and ``reserve`` are ints or 0-d tensors, and
+    nothing is read back to the host. With ``retry_max=0``, ``reserve=0``
+    and an empty ring this is the non-retry drain bit for bit. Returns
+    (state, retry', final-reject count int32).
+    """
+    C = retry.valid.shape[0]
+    sq = state.s_quantity
+
+    # -- pass 0: complete the reservations granted last window
+    done = retry.valid & retry.reserved & (reserve > 0)
+    r_valid = retry.valid & ~done
+
+    # -- pass 1: the ring (cold cells owned here), greedy by age
+    r_w = torch.where(r_valid, retry.dst_w - w_lo, 0)
+    r_i = torch.where(r_valid, retry.i_id, 0)
+    cell = retry.dst_w * n_items + retry.i_id
+    r_cell = torch.where(r_valid, cell, _INT32_MAX)      # invalid sort last
+    r_admit = _greedy_admit(
+        r_cell, retry.qty, r_valid,
+        _lexsort((retry.qty, -retry.tries, r_cell)), sq, retry.dst_w,
+        retry.i_id, w_lo)
+    apply_stock_updates(state, r_w, r_i, retry.qty, r_admit,
+                        torch.ones_like(r_admit), restock=False)
+    r_rej = r_valid & ~r_admit
+    r_tries = retry.tries + 1
+    r_final = r_rej & (r_tries >= retry_max)
+    r_requeue = r_rej & (r_tries < retry_max)
+
+    # -- pass 2: the fresh window against the stock pass 1 left
+    _, is_hot = hot_position(hot_keys, dst_w * n_items + i_idx)
+    w_idx = torch.where(mask, dst_w - w_lo, 0)
+    i_l = torch.where(mask, i_idx, 0)
+    cold = mask & ~is_hot
+    demand = torch.zeros_like(sq)
+    demand.index_put_((torch.where(cold, w_idx, 0).long(),
+                       torch.where(cold, i_l, 0).long()),
+                      torch.where(cold, qty, 0), accumulate=True)
+    admit_cold = cold & (demand <= sq)[w_idx.long(), i_l.long()]
+    apply_stock_updates(state, w_idx, i_l, qty, (mask & is_hot) | admit_cold,
+                        remote, restock=False)
+    f_rej = cold & ~admit_cold
+    f_requeue = f_rej & (retry_max > 0)
+    f_final = f_rej & (retry_max <= 0)
+
+    # -- pass 3: last-chance ring losers bid for the leftover stock
+    last_chance = r_requeue & (r_tries >= retry_max - 1) & (reserve > 0)
+    g_cell = torch.where(last_chance, cell, _INT32_MAX)
+    granted = _greedy_admit(g_cell, retry.qty, last_chance,
+                            _lexsort((retry.qty, g_cell)), sq, retry.dst_w,
+                            retry.i_id, w_lo)
+    apply_stock_updates(state, r_w, r_i, retry.qty, granted,
+                        torch.ones_like(granted), restock=False)
+
+    # -- compact the survivors ring-first into the [C] ring, through a
+    # [C + 1] buffer whose slot C takes every dropped entry
+    cand_keep = torch.cat([r_requeue, f_requeue])
+    rank = torch.cumsum(cand_keep, 0, dtype=torch.int32) - 1
+    keep = cand_keep & (rank < C)
+    overflow = cand_keep & (rank >= C)
+    slot = torch.where(keep, rank, C).long()
+
+    def pack(ring_vals, fresh_vals):
+        vals = torch.cat([ring_vals, fresh_vals])
+        buf = torch.zeros((C + 1,), dtype=vals.dtype, device=vals.device)
+        buf[slot] = torch.where(keep, vals, torch.zeros_like(vals))
+        return buf[:C]
+
+    new = RetryState(pack(retry.dst_w, dst_w), pack(retry.i_id, i_idx),
+                     pack(retry.qty, qty),
+                     pack(r_tries, torch.zeros_like(dst_w)),
+                     pack(r_requeue, f_requeue),
+                     pack(granted, torch.zeros_like(mask)))
+    final = (r_final.sum() + f_final.sum() + overflow.sum()).to(torch.int32)
+    return state, new, final
+
+
 # ---------------------------------------------------------------------------
 # Payment & Delivery ("largely uninteresting" per §6.2 — but implemented)
 # ---------------------------------------------------------------------------

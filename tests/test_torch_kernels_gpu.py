@@ -543,3 +543,35 @@ def test_four_replicas_through_each_kernel_match_the_plain_path(cuda, layout):
         assert all(torch.equal(x, y) for x, y in zip(got, want)), key
         assert c == counts, key
         assert launches == expect[key[1:]], (key, launches)
+
+
+def test_cold_retry_ring_on_the_card_matches_the_cpu(cuda):
+    """The cold-retry ring with reservations at R = 4 (the reference's
+    reclaim-test scale and knobs): through the megastep (B2) on the card
+    and through the plain path on the CPU, the same state, escrow, ring
+    and counts, with a reservation granted."""
+    from repro_torch.txn import run_loop
+    from repro_torch.txn.engine import Engine
+
+    scale = tpcc.TPCCScale(n_warehouses=4, districts=2, customers=8,
+                           n_items=32, order_capacity=512, max_lines=15)
+    kw = dict(batch_per_shard=8, n_batches=16, remote_frac=0.6,
+              merge_every=4, refresh_every=1, seed=3, item_skew=1.5,
+              retry_cap=256, retry_max=3, retry_reserve=1,
+              final_flush=False, return_retry=True, audit=True)
+    runs = []
+    for dev, admission, effects in (("cpu", "scan", "scan"),
+                                    (cuda, "kernel", "fused")):
+        e = Engine(scale, stock_invariant="strict", admission=admission,
+                   effects=effects, device=dev, n_shards=4)
+        txn_megastep_cuda.launches = 0
+        s, esc, st, ring = run_loop(e, tpcc.init_state(scale, device=dev),
+                                    **kw)
+        runs.append(([x.cpu() for x in (*s, *esc, *ring)],
+                     (st.neworders, st.aborts, st.cold_rejects,
+                      st.refreshes), txn_megastep_cuda.launches,
+                     int(ring.reserved.sum())))
+    (want, counts, _, reserved), (got, c, launches, _) = runs
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert c == counts and counts[2] > 0 and reserved > 0
+    assert launches == 4 * (kw["n_batches"] + 1)

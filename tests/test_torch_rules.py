@@ -129,8 +129,13 @@ def test_unported_paths_raise_not_implemented():
         n_batches=1)
     assert st2.committed + st2.aborted == 4
     eng = single_host_engine(scale, device="cpu")
-    for kw in (dict(fused=True), dict(retry_cap=4), dict(liveness=object()),
+    for kw in (dict(fused=True), dict(liveness=object()),
                dict(obs=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             run_loop(eng, tpcc.init_state(scale, device="cpu"),
                      batch_per_shard=2, n_batches=1, **kw)
+    # the cold-retry ring is ported; the merge regime refuses it as the
+    # reference does
+    with pytest.raises(ValueError, match="requires the escrow regime"):
+        run_loop(eng, tpcc.init_state(scale, device="cpu"),
+                 batch_per_shard=2, n_batches=1, retry_cap=4)

@@ -11,6 +11,8 @@ runs the same seeded stream through the port on the CPU:
 * the merge ``run_loop``, New-Order alone and with the mix;
 * sparse and dense escrow, every ``admission`` x ``effects``, audited;
 * a share refresh with one replica dead, then a batch and a drain;
+* ``run_loop`` with the adaptive refresh (``refresh_abort_rate``) and
+  with a dead replica (``alive``), in both layouts;
 * ``TwoPCEngine``, strict and not, and ``read_step``.
 
 Tolerance: exact, values and dtypes. Integer and bool tensors are equal;
@@ -52,6 +54,11 @@ ESCROW = dict(batch_per_shard=8, n_batches=6, remote_frac=0.5, merge_every=2,
               refresh_every=2, seed=5, item_skew=1.2)
 TWOPC = dict(batch_per_shard=8, n_batches=5, remote_frac=0.3, seed=2,
              item_skew=1.2)
+# run_loop's per-replica knobs: the adaptive refresh (at a rate, a number
+# of shards each, that refreshes at some windows and not at others), and
+# replica 1 dead
+KNOBS = dict(adaptive=dict(refresh_abort_rate={2: 0.4, 4: 0.6}, n_batches=8),
+             dead=dict(alive=1))
 COUNTS = ("neworders", "aborts", "cold_rejects", "refreshes",
           "anti_entropy_rounds", "payments", "order_statuses",
           "stock_levels", "deliveries", "reads_found", "fractures_observed",
@@ -78,6 +85,11 @@ ESCROW = dict(batch_per_shard=8, n_batches=6, remote_frac=0.5, merge_every=2,
               refresh_every=2, seed=5, item_skew=1.2)
 TWOPC = dict(batch_per_shard=8, n_batches=5, remote_frac=0.3, seed=2,
              item_skew=1.2)
+# run_loop's per-replica knobs: the adaptive refresh (at a rate, a number
+# of shards each, that refreshes at some windows and not at others), and
+# replica 1 dead
+KNOBS = dict(adaptive=dict(refresh_abort_rate={2: 0.4, 4: 0.6}, n_batches=8),
+             dead=dict(alive=1))
 COUNTS = ("neworders", "aborts", "cold_rejects", "refreshes",
           "anti_entropy_rounds", "payments", "order_statuses",
           "stock_levels", "deliveries", "reads_found", "fractures_observed",
@@ -131,6 +143,20 @@ for R in (2, 4):
         out[f"{tag}/alive_ok"] = np.asarray(ok)
         out[f"{tag}/alive_total"] = np.asarray(total)
         out[f"{tag}/alive_rej"] = np.asarray(rej)
+        for knob, over in KNOBS.items():
+            over = dict(over)
+            if "alive" in over:
+                over["alive"] = alive
+            else:
+                over["refresh_abort_rate"] = over["refresh_abort_rate"][R]
+            s0 = tpcc.init_state(scale)
+            s0 = s0._replace(s_quantity=s0.s_quantity * 3)
+            s, esc, st = run_loop(e, e.shard_state(s0), fused=False,
+                                  **dict(ESCROW, **over))
+            put(f"{tag}/{knob}", s)
+            put(f"{tag}/{knob}/esc", esc)
+            out[f"{tag}/{knob}/counts"] = np.array(
+                [getattr(st, k) for k in COUNTS])
     for strict in (False, True):
         t = TwoPCEngine(scale, mesh, strict_stock=strict)
         s, st = run_closed_loop_2pc(t, e.shard_state(tpcc.init_state(scale)),
@@ -238,6 +264,34 @@ def test_refresh_with_a_dead_replica_matches_reference(ref, R, layout):
         assert x.numpy().dtype == want.dtype
         assert np.array_equal(x.numpy(), want), name
     assert rej.shape == (R,) and not ok[8:16].any() and ok.any()
+
+
+@pytest.mark.parametrize("knob", list(KNOBS))
+@pytest.mark.parametrize("layout", ["sparse", "dense"])
+@pytest.mark.parametrize("R", SHARDS)
+def test_run_loop_per_replica_knobs_match_reference(ref, R, layout, knob):
+    """``run_loop`` with the per-replica adaptive refresh (it refreshes as
+    soon as any replica's abort rate since the last refresh crosses the
+    rate) and with replica 1 dead in every refresh, through the loop."""
+    over = dict(KNOBS[knob])
+    if "alive" in over:
+        alive = torch.ones(R, dtype=torch.int32)
+        alive[1] = 0
+        over["alive"] = alive
+    else:
+        over["refresh_abort_rate"] = over["refresh_abort_rate"][R]
+    e = _escrow_engine(R, layout)
+    s0 = tt.init_state(SCALE, device="cpu")
+    s0.s_quantity.mul_(3)
+    s, esc, st = run_loop(e, s0, audit=True, **dict(ESCROW, **over))
+    tag = f"R{R}/{layout}/{knob}"
+    assert _mismatches(ref, tag, s) == []
+    assert _mismatches(ref, f"{tag}/esc", esc) == []
+    assert _counts(st) == ref[f"{tag}/counts"].tolist()
+    if knob == "adaptive":
+        assert 0 < st.refreshes < st.anti_entropy_rounds
+    else:
+        assert int(esc.shares[1].sum()) == 0 and esc.shares[0].sum() > 0
 
 
 @pytest.mark.parametrize("strict", [False, True], ids=["merge", "strict"])

@@ -3,7 +3,8 @@
 alone, the five-transaction mix, the anti-entropy merge of divergent
 replica snapshots, LM serving (a dense and an RWKV-6 model), the dense
 escrow layout, the coordinated 2PC baseline, TPC-C as four replicas on
-one card, and their cold-retry ring.
+one card, their cold-retry ring, and crash recovery with self-detecting
+liveness.
 
     python3 chip_smoke.py
 
@@ -121,7 +122,24 @@ six CUDA kernels of the port from ``src/repro_torch/kernels/csrc`` (one
      and the plain path on the CPU, bit-equal to txn_megastep; a run cut in
      two and resumed through ``retry=``, card against CPU; one ring drain
      under the card's host-sync check; txn/s in turns and the device time
-     of one ring drain beside one plain drain.
+     of one ring drain beside one plain drain;
+ 18. crash recovery and liveness on phase 17's deployment: (a) its
+     16-batch split saved with ``txn.recovery.save_run``, restored with
+     ``restore_run(engine)`` bit-equal to the image, and resumed, through
+     txn_megastep and through escrow_admit, each ending bit-equal to
+     phase 17's in-memory resume; a save that dies before its commit
+     leaves ``latest_manifest`` on the committed generation; the bytes,
+     save and restore seconds and GB/s (time to recover); (b)
+     ``run_loop(liveness=LeaseMonitor)``: a monitor beating every replica
+     bit-equal to ``alive=None``, one whose source stops replica 2's
+     beats held to the JAX package's counts and detection lags; (c) the
+     reference's two failure rows (a kill, a checkpoint and a recovery; a
+     self-detected kill and a revival) through ``EscrowPodSimulator`` at
+     full width, held to the JAX package's counts, with exact cold
+     ledgers, strict audits, committed txn/s and the recover call's
+     seconds, each serving replica's step one txn_megastep launch; (d)
+     the same rows at the reference's toy scale, held to the committed
+     ``BENCH_escrow_failures.json`` and ``BENCH_liveness.json``.
 
 The deployment is TPC-C at the specification's per-warehouse cardinalities
 (TPC-C standard specification, clause 4.3.3.1: 10 districts, 3000 customers
@@ -137,10 +155,10 @@ the launcher's seeded prompts of 2-512 tokens, 32 new tokens each and
 SmolLM's context of 2048 as the KV capacity.
 
 Launch counters are set to 0 just before each main path (phases 3-4, 7,
-8, 10, 11, 12, 14, 15 and each run of 16 and 17) and read just after. The
-second-to-last line of output is the kernels' JSON record; the last line
-is the device record. Any failure exits non-zero; so does a machine
-without a CUDA device.
+8, 10, 11, 12, 14, 15 and each run of 16, 17 and 18) and read just
+after. The second-to-last line of output is the kernels' JSON record;
+the last line is the device record. Any failure exits non-zero; so does
+a machine without a CUDA device.
 """
 
 from __future__ import annotations
@@ -1490,6 +1508,69 @@ RING_REFERENCE = {
 }
 
 
+def ring_engine(scale, admission="kernel", effects="fused", device=None):
+    """Phase 17's four-replica engine (``RING_HOT_ITEMS`` hot items)."""
+    from repro_torch.txn.engine import Engine
+
+    return Engine(scale, stock_invariant="strict", hot_items=RING_HOT_ITEMS,
+                  admission=admission, effects=effects, device=device,
+                  n_shards=SHARDS)
+
+
+def ring_run(scale, tag, eng, state=None, esc=None, n_batches=None,
+             audit=True, **over):
+    """One run of ``RING_RUNS[tag]`` (``over`` replacing its knobs) under
+    ``RING``'s traffic for ``n_batches`` (default ``N_BATCHES``), from
+    ``init_state`` unless ``state`` is given, strictly audited; launch
+    counts from 0. Returns (state, escrow, stats, ring, (B1, B2)
+    launches)."""
+    import torch
+
+    from repro_torch.kernels.escrow_admit import escrow_admit_cuda
+    from repro_torch.kernels.txn_megastep import txn_megastep_cuda
+    from repro_torch.txn import assert_audit, init_state, run_loop
+
+    knobs = dict(RING_RUNS[tag], **over)
+    if "alive" in knobs:
+        knobs["alive"] = torch.tensor(knobs["alive"], dtype=torch.int32,
+                                      device=eng.device)
+    if state is None:
+        state = init_state(scale, seed=SEED, device=eng.device)
+    escrow_admit_cuda.launches = txn_megastep_cuda.launches = 0
+    s, e, m, ring = run_loop(
+        eng, state, esc, batch_per_shard=BATCH // SHARDS,
+        n_batches=N_BATCHES if n_batches is None else n_batches,
+        return_retry=True, **dict(RING, **knobs))
+    got = (escrow_admit_cuda.launches, txn_megastep_cuda.launches)
+    if audit:
+        assert_audit(s, escrow=e, initial_stock=_initial_stock(scale),
+                     strict_stock=True)
+    return s, e, m, ring, got
+
+
+_INITIAL_STOCK = {}
+
+
+def _initial_stock(scale):
+    """``init_state(scale, seed=SEED)``'s stock on the host, built once."""
+    from repro_torch.txn import init_state
+
+    if scale not in _INITIAL_STOCK:
+        _INITIAL_STOCK[scale] = init_state(
+            scale, seed=SEED, device="cpu").s_quantity
+    return _INITIAL_STOCK[scale]
+
+
+def ring_counts(m, ring):
+    """A run's (committed, aborted, cold rejects, refreshes, ring lanes an
+    owner, reserved lanes), the format of ``RING_REFERENCE``."""
+    if ring is None:
+        return (m.neworders, m.aborts, m.cold_rejects, m.refreshes,
+                None, None)
+    return (m.neworders, m.aborts, m.cold_rejects, m.refreshes,
+            ring.valid.sum(1).tolist(), int(ring.reserved.sum()))
+
+
 def cold_retry_ring(scale):
     """Phase 17: the cold-retry ring on ``SHARDS`` replicas at full width
     (phase 16's deployment under ``RING``'s traffic, ``RING_HOT_ITEMS``
@@ -1510,56 +1591,25 @@ def cold_retry_ring(scale):
     import numpy as np
     import torch
 
-    from repro_torch.kernels.escrow_admit import escrow_admit_cuda
-    from repro_torch.kernels.txn_megastep import txn_megastep_cuda
-    from repro_torch.txn import assert_audit, init_state, run_loop, tpcc
+    from repro_torch.txn import tpcc
     from repro_torch.txn.drivers import (_OutboxWindow,
                                          generate_neworder_stream)
-    from repro_torch.txn.engine import Engine
 
     R, bps = SHARDS, BATCH // SHARDS
     launches = dict.fromkeys(("escrow_admit", "txn_megastep"), 0)
     cpu = lambda t: type(t)(*(x.cpu() for x in t))
     card = lambda t: type(t)(*(x.cuda() for x in t))
-    q0 = init_state(scale, seed=SEED).s_quantity
 
-    def engine(admission="kernel", effects="fused", device=None):
-        return Engine(scale, stock_invariant="strict",
-                      hot_items=RING_HOT_ITEMS, admission=admission,
-                      effects=effects, device=device, n_shards=R)
-
-    def run(tag, eng, state=None, esc=None, n_batches=N_BATCHES, audit=True,
-            **over):
-        """One run of ``RING_RUNS[tag]``; returns (state, escrow, stats,
-        ring, (B1, B2) launches)."""
-        knobs = dict(RING_RUNS[tag], **over)
-        if "alive" in knobs:
-            knobs["alive"] = torch.tensor(knobs["alive"], dtype=torch.int32,
-                                          device=eng.device)
-        if state is None:
-            state = init_state(scale, seed=SEED, device=eng.device)
-        escrow_admit_cuda.launches = txn_megastep_cuda.launches = 0
-        s, e, m, ring = run_loop(
-            eng, state, esc, batch_per_shard=bps, n_batches=n_batches,
-            return_retry=True, **dict(RING, **knobs))
-        got = (escrow_admit_cuda.launches, txn_megastep_cuda.launches)
-        if audit:
-            assert_audit(s, escrow=e, initial_stock=q0.to(eng.device),
-                         strict_stock=True)
+    def run(tag, eng, *args, **kw):
+        """``ring_run``, its card launches added to the phase's."""
+        out = ring_run(scale, tag, eng, *args, **kw)
         if eng.device.type == "cuda":
-            launches["escrow_admit"] += got[0]
-            launches["txn_megastep"] += got[1]
-        return s, e, m, ring, got
-
-    def counts(m, ring):
-        if ring is None:
-            return (m.neworders, m.aborts, m.cold_rejects, m.refreshes,
-                    None, None)
-        return (m.neworders, m.aborts, m.cold_rejects, m.refreshes,
-                ring.valid.sum(1).tolist(), int(ring.reserved.sum()))
+            launches["escrow_admit"] += out[4][0]
+            launches["txn_megastep"] += out[4][1]
+        return out
 
     def check(tag, m, ring, got, want_launches):
-        c = counts(m, ring)
+        c = ring_counts(m, ring)
         print(f"ring [{tag}]: {c[0]} committed, {c[1]} aborted, {c[2]} cold "
               f"rejects, {c[3]} refreshes, ring {c[4]}, {c[5]} reserved; "
               f"{m.throughput:,.0f} txn/s; escrow_admit/txn_megastep "
@@ -1573,7 +1623,7 @@ def cold_retry_ring(scale):
           f"New-Orders a shard a batch, {RING['remote_frac']:.0%} remote "
           f"lines, {RING_HOT_ITEMS} hot item a warehouse, the spec's stock, "
           f"retry_cap={RING_CAP}")
-    b2 = engine()
+    b2 = ring_engine(scale)
     per_run = (0, R * (N_BATCHES + 1))
     tput = {}
     runs = {}
@@ -1590,7 +1640,7 @@ def cold_retry_ring(scale):
     s_n, e_n, m_n, _ = runs.pop("none")
     s_0, e_0, m_0, _ = runs.pop("rm0")
     bad = _same(s_n, s_0) + _same(e_n, e_0)
-    if bad or counts(m_n, None)[:4] != counts(m_0, None)[:4]:
+    if bad or ring_counts(m_n, None)[:4] != ring_counts(m_0, None)[:4]:
         raise AssertionError(f"ring: retry_max=0 != no ring: {bad}")
     print("ring: retry_max=0 bit-equal to no ring (state, escrow, counts)")
     del s_n, e_n, s_0, e_0
@@ -1598,24 +1648,27 @@ def cold_retry_ring(scale):
 
     s3, e3, m3, r3 = runs.pop("rm3")
     for tag, eng, want in (
-            ("escrow_admit", engine("kernel", "scan"), (per_run[1], 0)),
-            ("plain path on the card", engine("scan", "scan"), (0, 0)),
-            ("plain path on the CPU", engine("scan", "scan", "cpu"),
-             (0, 0))):
+            ("escrow_admit", ring_engine(scale, "kernel", "scan"),
+             (per_run[1], 0)),
+            ("plain path on the card", ring_engine(scale, "scan", "scan"),
+             (0, 0)),
+            ("plain path on the CPU",
+             ring_engine(scale, "scan", "scan", "cpu"), (0, 0))):
         s, e, m, ring, got = run("rm3", eng)
         bad = _same(s3, card(s)) + _same(e3, card(e)) + _same(r3, card(ring))
-        if bad or counts(m, ring) != counts(m3, r3) or got != want:
+        if bad or ring_counts(m, ring) != ring_counts(m3, r3) or got != want:
             raise AssertionError(f"ring, retry_max=3: {tag} != txn_megastep:"
-                                 f" {bad} {counts(m, ring)} launches {got}")
+                                 f" {bad} {ring_counts(m, ring)} launches "
+                                 f"{got}")
         print(f"ring, retry_max=3 through {tag}: bit-equal to txn_megastep "
-              f"(state, escrow, ring, counts {counts(m, ring)}); "
+              f"(state, escrow, ring, counts {ring_counts(m, ring)}); "
               f"{m.throughput:,.0f} txn/s; launches={got}")
         del s, e, ring
     torch.cuda.empty_cache()
 
     # final_flush=False for RING_SPLIT batches, then a resume through retry=
     ends = []
-    for eng in (b2, engine("scan", "scan", "cpu")):
+    for eng in (b2, ring_engine(scale, "scan", "scan", "cpu")):
         split = R * (RING_SPLIT + 1)
         s, e, m, ring, got = run("noflush", eng, n_batches=RING_SPLIT)
         if eng is b2:
@@ -1624,7 +1677,7 @@ def cold_retry_ring(scale):
                                  seed=SEED + 1, retry=ring, final_flush=True)
         if eng is b2:
             check("resume", m, ring, got, (0, split))
-        ends.append((cpu(s), cpu(e), cpu(ring), counts(m, ring)))
+        ends.append((cpu(s), cpu(e), cpu(ring), ring_counts(m, ring)))
     bad = [f"{i}: {_same(x, y)}" for i, (x, y) in enumerate(zip(*ends))
            if i < 3 and _same(x, y)]
     if bad or ends[0][3] != ends[1][3]:
@@ -1633,6 +1686,7 @@ def cold_retry_ring(scale):
     print(f"ring: {RING_SPLIT} batches with final_flush=False, resumed "
           f"through retry= for {RING_SPLIT} more: card == CPU (state, "
           f"escrow, ring, counts {ends[0][3]})")
+    resume_end = ends[0]     # phase 18's disk resume must end here
     del ends
 
     # the next window after the retry_max=3 run: the ring's drain reads
@@ -1687,13 +1741,324 @@ def cold_retry_ring(scale):
     # txn/s in turns: the first round above, then rm3, rm0, none again
     for tag in ("rm3", "rm0", "none"):
         s, e, m, ring, got = run(tag, b2, audit=False)
-        if counts(m, ring) != RING_REFERENCE[tag] or got != per_run:
+        if ring_counts(m, ring) != RING_REFERENCE[tag] or got != per_run:
             raise AssertionError(f"ring [{tag}], second run: "
-                                 f"{counts(m, ring)} launches {got}")
+                                 f"{ring_counts(m, ring)} launches {got}")
         tput[tag].append(m.throughput)
         del s, e
     print(f"ring, txn/s (runs in turns none, rm0, rm3, ..., rm3, rm0, none):"
           f" {json.dumps({k: tput[k] for k in ('none', 'rm0', 'rm3')})}")
+    return launches, resume_end
+
+
+# phase 18: crash recovery and self-detecting liveness on phase 17's
+# deployment and traffic. (b) A lease monitor whose source stops replica
+# LIVE["dead"]'s beats from window LIVE["stop"]: with expiry 0 and
+# hysteresis 1 it is declared dead at the third drain, so the refreshes of
+# the last two windows reclaim its share
+LIVE = dict(expiry=0, hysteresis=1, stop=1, dead=2)
+# The JAX package's (committed, aborted, cold rejects, refreshes, ring
+# lanes an owner, reserved lanes) and detection lags for that run at this
+# width, on the CPU (4 simulated devices, 25 s, 7.3 GB of host memory) by
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_liveness.py
+LIVE_REFERENCE = ((1330, 6862, 441, 4, [95, 55, 111, 82], 0), [2])
+# (c) the reference's two failure rows (benchmarks/paper_figures.py's
+# escrow_failures and liveness) through EscrowPodSimulator on this
+# deployment, and (d) at their own toy scale: 12 windows, replica 2 killed
+# at window 4 and recovered (from the checkpoint taken then) or revived at
+# window 8
+SIM = {"full": dict(scale=None, windows=12, batch=BATCH // SHARDS,
+                    retry_cap=RING_CAP, retry_max=3,
+                    hot_items=RING_HOT_ITEMS, seed=SEED,
+                    stock_scale={"escrow_failures": 1, "liveness": 1},
+                    remote_frac=RING["remote_frac"], item_skew=ITEM_SKEW),
+       "toy": dict(scale=(4, 2, 16, 64, 1024, 15), windows=12, batch=16,
+                   retry_cap=128, retry_max=3, hot_items=None, seed=11,
+                   stock_scale={"escrow_failures": 20, "liveness": 3},
+                   remote_frac=0.5, item_skew=1.2)}
+SIM_KILLED = 2
+# The JAX package's counts for those rows: at full width on the CPU (137 s,
+# 13.2 GB of host memory at its peak) by
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_failures.py
+# and at the toy scale the committed BENCH_escrow_failures.json and
+# BENCH_liveness.json
+_KILLED = dict(detected_in_windows=3, detection_bound=3, handback_ok=True)
+SIM_REFERENCE = {
+    ("full", "escrow_failures", False): dict(committed=767, final_rejects=90),
+    ("full", "escrow_failures", True): dict(committed=712, final_rejects=74),
+    ("full", "liveness", False): dict(committed=767, final_rejects=90,
+                                      res_granted=1, res_completed=1),
+    ("full", "liveness", True): dict(committed=693, final_rejects=82,
+                                     res_granted=0, res_completed=0,
+                                     **_KILLED),
+    ("toy", "escrow_failures", False): dict(committed=309, final_rejects=42),
+    ("toy", "escrow_failures", True): dict(committed=299, final_rejects=34),
+    ("toy", "liveness", False): dict(committed=95, final_rejects=32,
+                                     res_granted=1, res_completed=1),
+    ("toy", "liveness", True): dict(committed=91, final_rejects=27,
+                                    res_granted=1, res_completed=1,
+                                    **_KILLED),
+}
+
+
+def stop_beat(R, dead, stop):
+    """A lease source: every replica beats once a window, but ``dead``'s
+    stamp stops advancing at window ``stop``."""
+    import numpy as np
+
+    from repro_torch.core.lattice import pack_lease_stamp
+
+    def source(window):
+        seq = np.full(R, window + 1, np.int64)
+        seq[dead] = min(window, stop - 1) + 1
+        return np.asarray(pack_lease_stamp(0, seq), np.int64)
+    return source
+
+
+def _dir_bytes(d) -> int:
+    import os
+    return sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+
+
+def disk_resume(scale, resume_end):
+    """Phase 18 (a): phase 17's split run through the disk. For B2 and for
+    B1 (``effects="scan"``): ``RING_SPLIT`` batches with
+    ``final_flush=False``, ``save_run``, ``restore_run(engine)`` bit-equal
+    to the saved image, then the resume from the restored image, which
+    must end bit-equal to phase 17's in-memory resume (``resume_end``) with
+    ``RING_REFERENCE["resume"]``'s counts. A save that dies before its
+    commit leaves ``latest_manifest`` on the committed generation. Returns
+    each kernel's launches."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.ckpt.checkpoint import latest_manifest
+    from repro_torch.txn import restore_run, save_run
+
+    launches = dict.fromkeys(("escrow_admit", "txn_megastep"), 0)
+    names = tuple(launches)
+    split = SHARDS * (RING_SPLIT + 1)
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    for kernel, effects, want in (("txn_megastep", "fused", (0, split)),
+                                  ("escrow_admit", "scan", (split, 0))):
+        eng = ring_engine(scale, "kernel", effects)
+        s, e, m, ring, got = ring_run(scale, "noflush", eng,
+                                      n_batches=RING_SPLIT)
+        if ring_counts(m, ring) != RING_REFERENCE["split"] or got != want:
+            raise AssertionError(f"disk resume [{kernel}]: split "
+                                 f"{ring_counts(m, ring)} launches {got}")
+        for k, n in zip(names, got):
+            launches[k] += n
+        with tempfile.TemporaryDirectory(dir=build) as d:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            man = save_run(d, s, RING_SPLIT, esc=e, retry=ring)
+            save_s = time.perf_counter() - t0
+            nbytes = _dir_bytes(d)
+            t0 = time.perf_counter()
+            rr = restore_run(d, eng)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            bad = _same(s, rr.state) + _same(e, rr.esc) + _same(ring, rr.retry)
+            if bad or rr.step != RING_SPLIT or rr.state.s_quantity.device \
+                    != s.s_quantity.device:
+                raise AssertionError(f"disk resume [{kernel}]: the restore "
+                                     f"!= the saved image: {bad}")
+            print(f"recovery [{kernel}]: save_run of the {RING_SPLIT}-batch "
+                  f"image: {nbytes:,} bytes in {save_s:.3f} s; restore_run "
+                  f"onto the card in {restore_s:.3f} s, "
+                  f"{nbytes / restore_s / 1e9:.3f} GB/s (host wall time); "
+                  f"bit-equal to the saved image")
+            del s, e, ring
+            if kernel == "txn_megastep":
+                # a writer that dies between its shard file and the commit
+                save_run(d, rr.state, RING_SPLIT + 1, esc=rr.esc,
+                         retry=rr.retry, commit=False)
+                latest = latest_manifest(d)
+                if (latest.seq_id, latest.step) != (man.seq_id, RING_SPLIT):
+                    raise AssertionError(f"recovery: the uncommitted save "
+                                         f"shadowed generation {man.seq_id}")
+                print(f"recovery: a save that died before its commit leaves "
+                      f"latest_manifest on generation {latest.seq_id} "
+                      f"(step {latest.step})")
+        s, e, m, ring, got = ring_run(
+            scale, "noflush", eng, rr.state, rr.esc, n_batches=RING_SPLIT,
+            seed=SEED + 1, retry=rr.retry, final_flush=True)
+        del rr
+        c = ring_counts(m, ring)
+        bad = [d for d in (_same(type(x)(*(v.cuda() for v in x)), y)
+                           for x, y in zip(resume_end[:3], (s, e, ring)))
+               if d]
+        if bad or c != RING_REFERENCE["resume"] or c != resume_end[3] \
+                or got != want:
+            raise AssertionError(f"disk resume [{kernel}]: {bad} {c} "
+                                 f"launches {got}")
+        print(f"recovery [{kernel}]: the resume from the disk ends bit-equal "
+              f"to phase 17's in-memory resume (state, escrow, ring, counts "
+              f"{c}); launches={got}")
+        for k, n in zip(names, got):
+            launches[k] += n
+        del s, e, ring
+        torch.cuda.empty_cache()
+    return launches
+
+
+def liveness_runs(scale):
+    """Phase 18 (b): ``run_loop(liveness=)`` on phase 17's rm3 run. A
+    monitor whose source beats every replica is bit-equal to ``alive=None``
+    (``RING_REFERENCE["rm3"]``); one whose source stops replica
+    ``LIVE["dead"]``'s beats gives the JAX package's counts and detection
+    lags (``LIVE_REFERENCE``) and leaves the dead slot no shares. Returns
+    the B2 launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.lattice import pack_lease_stamp
+    from repro_torch.runtime.liveness import LeaseMonitor
+
+    R, per_run = SHARDS, SHARDS * (N_BATCHES + 1)
+    b2 = ring_engine(scale)
+    s0, e0, m0, r0, got0 = ring_run(scale, "rm3", b2)
+    beats = LeaseMonitor(R, source=lambda w: np.asarray(
+        pack_lease_stamp(0, np.full(R, w + 1)), np.int64))
+    s1, e1, m1, r1, got1 = ring_run(scale, "rm3", b2, liveness=beats)
+    bad = _same(s0, s1) + _same(e0, e1) + _same(r0, r1)
+    c = ring_counts(m1, r1)
+    if bad or c != ring_counts(m0, r0) or c != RING_REFERENCE["rm3"] \
+            or beats.window != N_BATCHES // MERGE_EVERY or beats.detections \
+            or got0 != got1 or got1 != (0, per_run):
+        raise AssertionError(f"liveness: an always-beating monitor != "
+                             f"alive=None: {bad} {c} {beats.detections} "
+                             f"launches {got1}")
+    print(f"liveness: a monitor beating every replica, ticked "
+          f"{beats.window} times, bit-equal to alive=None (state, escrow, "
+          f"ring, counts {c}); launches={got1}")
+    del s0, e0, r0, s1, e1, r1
+    mon = LeaseMonitor(R, expiry=LIVE["expiry"],
+                       hysteresis=LIVE["hysteresis"],
+                       source=stop_beat(R, LIVE["dead"], LIVE["stop"]))
+    s, e, m, ring, got = ring_run(scale, "rm3", b2, liveness=mon)
+    c = (ring_counts(m, ring), mon.detection_lags())
+    dead_shares = int(e.shares[LIVE["dead"]].sum())
+    if c != LIVE_REFERENCE or dead_shares or got != (0, per_run):
+        raise AssertionError(f"liveness: {c}, want the JAX package's "
+                             f"{LIVE_REFERENCE}; dead slot {dead_shares} "
+                             f"shares; launches {got}")
+    print(f"liveness: replica {LIVE['dead']} stops beating at window "
+          f"{LIVE['stop']}: detected {mon.detections} (window, replica, "
+          f"lag), counts {c[0]}, lags {c[1]} (the JAX package's), the dead "
+          f"slot 0 shares, strict audit OK; {m.throughput:,.0f} txn/s; "
+          f"launches={got}")
+    del s, e, ring
+    torch.cuda.empty_cache()
+    return got0[1] + got1[1] + got[1]
+
+
+def sim_row(cfg, row, kill, directory):
+    """One failure row through ``EscrowPodSimulator`` on the card: steady,
+    or replica ``SIM_KILLED`` killed at window W/3 (``escrow_failures``:
+    checkpointed first, recovered at 2W/3; ``liveness``: self-detected,
+    revived at 2W/3), then drained to quiescence, the cold ledger checked
+    and strictly audited. Returns (its counts, committed txn/s over the
+    run, the recover call's seconds, serving steps, B2 launches)."""
+    import torch
+
+    from repro_torch.kernels.txn_megastep import txn_megastep_cuda
+    from repro_torch.runtime.failures import EscrowPodSimulator
+    from repro_torch.txn import TPCCScale
+    from repro_torch.txn.audit import check_cold_ledger
+
+    scale = (TPCCScale(*cfg["scale"]) if cfg["scale"]
+             else TPCCScale.spec_scale(WAREHOUSES))
+    live = row == "liveness"
+    sim = EscrowPodSimulator(
+        scale, SHARDS, retry_cap=cfg["retry_cap"], retry_max=cfg["retry_max"],
+        hot_items=cfg["hot_items"], seed=cfg["seed"],
+        stock_scale=cfg["stock_scale"][row], liveness=live, reserve=live)
+    W = cfg["windows"]
+    txn_megastep_cuda.launches = 0
+    serving, detected, recover_s = 0, None, None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(W):
+        if kill and t == W // 3:
+            if not live:
+                sim.checkpoint(directory, step=t)
+            sim.kill(SIM_KILLED)
+        if kill and t == 2 * W // 3:
+            if live:
+                sim.revive(SIM_KILLED)
+            else:
+                t1 = time.perf_counter()
+                sim.recover(SIM_KILLED, directory)
+                torch.cuda.synchronize()
+                recover_s = time.perf_counter() - t1
+        serving += sum(sim._serving(r) for r in range(SHARDS))
+        sim.step(cfg["batch"], remote_frac=cfg["remote_frac"],
+                 item_skew=cfg["item_skew"])
+        sim.drain()
+        sim.refresh()
+        if live and kill and detected is None and not sim.alive[SIM_KILLED]:
+            detected = t - W // 3 + 1
+    if live:
+        sim.quiesce()
+    else:
+        for _ in range(sim.retry_max + 2):
+            sim.drain()
+    sim.refresh()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    led = sim.cold_ledger()
+    check_cold_ledger(led, quiescent=True)
+    sim.audit()
+    out = dict(committed=sim.committed, final_rejects=led["final_rejects"])
+    if live:
+        out.update(res_granted=led["res_granted"],
+                   res_completed=led["res_completed"])
+        if kill:
+            out.update(detected_in_windows=detected,
+                       detection_bound=sim.monitor.detection_bound,
+                       handback_ok=(sim.owner_of[SIM_KILLED] == SIM_KILLED
+                                    and sim.alive[SIM_KILLED]))
+    return out, sim.committed / wall, recover_s, serving, \
+        txn_megastep_cuda.launches
+
+
+def sim_rows():
+    """Phase 18 (c) and (d): both failure rows, steady and with the kill,
+    at full width and at the reference's toy scale, each held to the JAX
+    package's counts; every serving replica's step is one txn_megastep
+    launch. Returns the B2 launches of all the rows."""
+    import tempfile
+
+    import torch
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    launches = 0
+    for size in ("full", "toy"):
+        for row in ("escrow_failures", "liveness"):
+            for kill in (False, True):
+                with tempfile.TemporaryDirectory(dir=build) as d:
+                    out, tps, recover_s, serving, n = sim_row(
+                        SIM[size], row, kill, d)
+                torch.cuda.empty_cache()
+                want = SIM_REFERENCE[(size, row, kill)]
+                tag = f"{row}, {size}, {'kill' if kill else 'steady'}"
+                if out != want or n != serving:
+                    raise AssertionError(
+                        f"pod simulator [{tag}]: {out}, want the JAX "
+                        f"package's {want}; txn_megastep launches {n} for "
+                        f"{serving} serving steps")
+                launches += n
+                extra = ("" if recover_s is None
+                         else f"; recover {recover_s:.3f} s")
+                print(f"pod simulator [{tag}]: {json.dumps(out)} (the JAX "
+                      f"package's); exact cold ledger, strict audit OK; "
+                      f"{tps:,.1f} committed txn/s{extra}; {serving} serving "
+                      f"steps, txn_megastep launches={n}")
     return launches
 
 
@@ -1930,9 +2295,19 @@ def main() -> int:
 
     # -- phase 17: the cold-retry ring on replicas, launch counts from 0 -----
     t0 = time.perf_counter()
-    for k, n in cold_retry_ring(scale).items():
+    ring_launches, resume_end = cold_retry_ring(scale)
+    for k, n in ring_launches.items():
         launches[k] += n
     print(f"ring: phase 17 in {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 18: recovery and liveness, launch counts from 0 ---------------
+    t0 = time.perf_counter()
+    for k, n in disk_resume(scale, resume_end).items():
+        launches[k] += n
+    del resume_end
+    launches["txn_megastep"] += liveness_runs(scale)
+    launches["txn_megastep"] += sim_rows()
+    print(f"recovery: phase 18 in {time.perf_counter() - t0:.1f} s")
     print(f"launches, every main path: {json.dumps(launches)}")
 
     for k in ("ramp_read", "lattice_merge", "flash_attention", "rwkv6_scan"):

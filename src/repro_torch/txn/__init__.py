@@ -1,6 +1,6 @@
 # TPC-C on one card: the port of repro.txn (the five-transaction mix in the
 # merge and escrow regimes, both escrow layouts, the RAMP reads, the
-# dispatch closed loop, the 2PC baseline, the audit).
+# dispatch closed loop, the 2PC baseline, the audit, crash recovery).
 from .tpcc import (TPCCScale, TPCCState, NewOrderBatch, OrderStatusBatch,
                    PaymentBatch, StockDelta, StockLevelBatch,
                    init_state, generate_neworder, generate_order_status,
@@ -10,7 +10,8 @@ from .tpcc import (TPCCScale, TPCCState, NewOrderBatch, OrderStatusBatch,
                    apply_delivery, apply_stock_updates_strict_tiered,
                    check_consistency, default_hot_items, escrow_layout_bytes,
                    escrow_share_for, item_popularity, make_escrow_shares,
-                   select_hot_cells, tpcc_invariants, tpcc_state_specs)
+                   select_hot_cells, state_shape_dtypes, tpcc_invariants,
+                   tpcc_state_specs)
 from .ramp import (OrderStatusResult, StockLevelResult, apply_order_status,
                    apply_stock_level, conceal_lines, delivery_read,
                    publish_lines, read_lines)
@@ -19,3 +20,4 @@ from .drivers import (MixStats, RunStats, generate_mix_batches,
                       generate_neworder_stream, run_loop)
 from .twopc import TwoPCEngine, run_closed_loop_2pc
 from .audit import AuditReport, assert_audit, audit_tpcc
+from .recovery import RestoredRun, restore_run, save_run

@@ -19,6 +19,9 @@
   owner keeps the remote-cold entries its drain rejected in a bounded ring
   and re-presents them for up to ``retry_max`` windows, with optional
   owner-granted reservations (``retry_reserve``);
+* **liveness** — a ``runtime.liveness.LeaseMonitor`` ticks once a drain
+  window and its alive mask feeds that window's share refresh, so a
+  replica that stops beating has its share reclaimed with no caller mask;
 * **audit** — ``audit=True`` runs the consistency oracle on the final
   state.
 
@@ -156,8 +159,8 @@ def _adaptive_refresh_due(aborts_since, txns_since, rate: float) -> bool:
 
 _NOT_PORTED = {
     "fused": "the fused executor with CUDA graphs is ROADMAP Queue A item 5",
-    "liveness": "liveness is ROADMAP Queue A item 9",
-    "obs": "the observability plane is ROADMAP Queue A item 9",
+    "obs": "the observability plane is ROADMAP Queue A item 9, parts 4-5, "
+           "behind the fused executor (item 5)",
 }
 
 
@@ -182,8 +185,11 @@ def run_loop(engine, state: TPCCState, esc=None, *,
     With ``reads`` the stream is the mix's (:func:`generate_mix_batches`),
     whose Payment batches are drawn whether or not ``payments`` is on, as in
     the reference. ``alive`` ([n_shards] mask) threads share reclamation
-    into every refresh. ``fused``, ``liveness`` and ``obs`` belong to later
-    slices and raise ``NotImplementedError``.
+    into every refresh; ``liveness`` (a ``runtime.liveness.LeaseMonitor``)
+    replaces it with a self-derived mask: the monitor ticks once per drain
+    window of the escrow regime and its alive mask feeds that window's
+    refresh. ``fused`` and ``obs`` belong to later slices and raise
+    ``NotImplementedError``.
 
     The cold-retry ring (escrow regime, sparse layout): ``retry_cap`` > 0
     gives each owner a ring of that many lanes, whose owner-rejected
@@ -201,8 +207,7 @@ def run_loop(engine, state: TPCCState, esc=None, *,
     ``stats.cold_rejects``, 0 in the dense layout, which has no cold
     tier).
     """
-    asked = dict(fused=fused, liveness=liveness is not None,
-                 obs=obs is not None)
+    asked = dict(fused=fused, obs=obs is not None)
     for knob, on in asked.items():
         if on:
             raise NotImplementedError(_NOT_PORTED[knob])
@@ -235,7 +240,8 @@ def run_loop(engine, state: TPCCState, esc=None, *,
         refresh_every=refresh_every, refresh_abort_rate=refresh_abort_rate,
         deliveries=deliveries, escrow=escrow, alive=alive,
         retry_cap=retry_cap, retry_max=retry_max, retry=retry,
-        retry_reserve=retry_reserve, final_flush=final_flush)
+        retry_reserve=retry_reserve, final_flush=final_flush,
+        liveness=liveness)
     if audit:
         from .audit import assert_audit
         if escrow:
@@ -265,7 +271,7 @@ def _dispatch_loop(engine, state, esc, no_b, pay_b, os_b, sl_b, *,
                    batch_per_shard, merge_every, refresh_every,
                    refresh_abort_rate, deliveries, escrow, alive,
                    retry_cap=0, retry_max=0, retry=None, retry_reserve=0,
-                   final_flush=True):
+                   final_flush=True, liveness=None):
     """The per-batch dispatch path: one engine call per transaction type
     per batch."""
     ring = None                  # the live cold-retry ring, where there is one
@@ -357,6 +363,10 @@ def _dispatch_loop(engine, state, esc, no_b, pay_b, os_b, sl_b, *,
             stats.anti_entropy_rounds += 1
             rounds += 1
             if escrow:
+                if liveness is not None:
+                    # the self-derived mask: one monitor tick a drain
+                    # window, feeding this window's refresh
+                    alive = liveness.tick().astype(np.int32)
                 if adaptive:
                     # the one host read adaptive control costs, per window
                     commits_now = pr_commit.cpu().numpy().astype(np.int64)

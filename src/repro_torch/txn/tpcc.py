@@ -147,6 +147,13 @@ def init_state(scale: TPCCScale, seed: int = 0, device=None) -> TPCCState:
     )
 
 
+def state_shape_dtypes(scale: TPCCScale) -> TPCCState:
+    """The tables' shapes and dtypes as meta tensors, allocating none of
+    the tables (only :func:`init_state`'s host draws): the template a
+    checkpoint restores into (the reference's ``tpcc.state_shape_dtypes``)."""
+    return init_state(scale, device="meta")
+
+
 # ---------------------------------------------------------------------------
 # Transaction inputs
 # ---------------------------------------------------------------------------

@@ -575,3 +575,93 @@ def test_cold_retry_ring_on_the_card_matches_the_cpu(cuda):
     assert all(torch.equal(x, y) for x, y in zip(got, want))
     assert c == counts and counts[2] > 0 and reserved > 0
     assert launches == 4 * (kw["n_batches"] + 1)
+
+
+@pytest.mark.parametrize("mode", ["recover", "revive"])
+def test_pod_simulator_on_the_card_matches_the_cpu(cuda, tmp_path, mode):
+    """The escrow pod simulator through a failure: ``recover``, replica 2
+    checkpointed and killed, then recovered from the checkpoint (the
+    omniscient caller); ``revive``, self-detecting mode with reservations,
+    replica 2 killed, detected, adopted by its successor and revived. Each
+    step goes through the megastep (B2) on the card, bit-equal to the same
+    simulator on the CPU (state, escrow, rings, queues, ledger); the cold
+    ledger is exact and the card's state audits."""
+    from repro_torch.runtime.failures import EscrowPodSimulator
+
+    scale = tpcc.TPCCScale(n_warehouses=4, districts=2, customers=16,
+                           n_items=64, order_capacity=1024, max_lines=15)
+    live = mode == "revive"
+    sims = [EscrowPodSimulator(scale, 4, retry_cap=128, retry_max=3,
+                               seed=11, stock_scale=3, liveness=live,
+                               reserve=live, device=dev)
+            for dev in ("cpu", cuda)]
+    txn_megastep_cuda.launches = 0
+    serving = 0
+    for t in range(10):
+        for i, sim in enumerate(sims):
+            if t == 3:
+                if not live:
+                    sim.checkpoint(str(tmp_path / str(i)), step=t)
+                sim.kill(2)
+            if t == 7:
+                if live:
+                    sim.revive(2)
+                else:
+                    sim.recover(2, str(tmp_path / str(i)))
+            if i == 1:
+                serving += sum(sim._serving(r) for r in range(4))
+            sim.step(16, remote_frac=0.5, item_skew=1.2)
+            sim.drain()
+            sim.refresh()
+    for sim in sims:
+        sim.quiesce()
+        sim.refresh()
+    cpu, card = sims
+    assert txn_megastep_cuda.launches == serving > 0
+    assert card.hot_keys.device.type == "cuda"
+    for a, b in ((cpu.full_state(), card.full_state()), (cpu.esc, card.esc),
+                 *zip(cpu.rings, card.rings)):
+        assert all(torch.equal(x, y.cpu()) for x, y in zip(a, b))
+    assert (cpu.pending, cpu.committed, cpu.cold_ledger()) == \
+        (card.pending, card.committed, card.cold_ledger())
+    if live:
+        assert card.monitor.detections == cpu.monitor.detections != []
+    assert card.cold_ledger()["exact"] and card.audit().ok
+
+
+def test_restore_run_onto_the_card_matches_the_cpu(cuda, tmp_path):
+    """A run image of four replicas saved with ``final_flush=False`` and
+    restored through ``restore_run(engine)``: every leaf lands on the
+    card, bit-equal to the saved image and to the CPU's restore of the
+    CPU's run; the two resume to the same end."""
+    from repro_torch.txn import assert_audit, restore_run, run_loop, save_run
+    from repro_torch.txn.engine import Engine
+
+    scale = tpcc.TPCCScale(n_warehouses=4, districts=2, customers=8,
+                           n_items=32, order_capacity=512, max_lines=15)
+    kw = dict(batch_per_shard=8, n_batches=8, remote_frac=0.6,
+              merge_every=4, refresh_every=1, seed=3, item_skew=1.5,
+              retry_cap=256, retry_max=3, return_retry=True)
+    ends = []
+    for dev, admission, effects in (("cpu", "scan", "scan"),
+                                    (cuda, "kernel", "fused")):
+        e = Engine(scale, stock_invariant="strict", admission=admission,
+                   effects=effects, device=dev, n_shards=4)
+        s, esc, _, ring = run_loop(e, tpcc.init_state(scale, device=dev),
+                                   final_flush=False, **kw)
+        d = str(tmp_path / str(dev))
+        save_run(d, s, 8, esc=esc, retry=ring)
+        rr = restore_run(d, e)
+        leaves = [*rr.state, *rr.esc, *rr.retry]
+        assert all(x.device.type == torch.device(dev).type for x in leaves)
+        assert all(torch.equal(x, y)
+                   for x, y in zip(leaves, [*s, *esc, *ring]))
+        s2, esc2, st2, ring2 = run_loop(e, rr.state, rr.esc, retry=rr.retry,
+                                        **dict(kw, seed=4))
+        assert_audit(s2, escrow=esc2, strict_stock=True, initial_stock=(
+            tpcc.init_state(scale, device="cpu").s_quantity))
+        ends.append(([x.cpu() for x in (*s2, *esc2, *ring2)],
+                     (st2.neworders, st2.aborts, st2.cold_rejects)))
+    (want, counts), (got, c) = ends
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert c == counts

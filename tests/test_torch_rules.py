@@ -3,7 +3,8 @@
 * No file of ``src/repro_torch/`` and not ``chip_smoke.py`` imports JAX or
   anything of the JAX package ``repro``.
 * Importing ``repro_torch`` leaves ``jax`` out of ``sys.modules``.
-* Entry points run on the CUDA card unless the caller passes
+* Entry points (the engine, the state and stream builders, the pod
+  simulator) run on the CUDA card unless the caller passes
   ``device="cpu"``: with no card they raise instead of falling back.
 * The kernel modules hold no ``try`` (no path that falls back from a
   kernel to its plain version).
@@ -53,7 +54,8 @@ def test_port_imports_neither_jax_nor_reference():
 def test_importing_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.txn, repro_torch.kernels,"
             " repro_torch.models, repro_torch.configs,"
-            " repro_torch.runtime.serve, repro_torch.launch.serve;"
+            " repro_torch.runtime.serve, repro_torch.launch.serve,"
+            " repro_torch.runtime, repro_torch.ckpt, repro_torch.txn.recovery;"
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
             "or m.startswith(('jax.', 'repro.'))];"
             "assert not bad, bad")
@@ -79,6 +81,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         tpcc.init_state(scale)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tpcc.generate_neworder(np.random.default_rng(0), scale, 4)
+    from repro_torch.runtime.failures import EscrowPodSimulator
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        EscrowPodSimulator(scale, 2)
     # asked for explicitly, the CPU is fine
     eng = single_host_engine(scale, device="cpu")
     assert eng.device == torch.device("cpu")
@@ -129,11 +134,16 @@ def test_unported_paths_raise_not_implemented():
         n_batches=1)
     assert st2.committed + st2.aborted == 4
     eng = single_host_engine(scale, device="cpu")
-    for kw in (dict(fused=True), dict(liveness=object()),
-               dict(obs=object())):
+    for kw in (dict(fused=True), dict(obs=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             run_loop(eng, tpcc.init_state(scale, device="cpu"),
                      batch_per_shard=2, n_batches=1, **kw)
+    # liveness is ported: a lease monitor ticks once a drain window
+    from repro_torch.runtime.liveness import LeaseMonitor
+    mon = LeaseMonitor(2, source=lambda w: np.full(2, w + 1, np.int64))
+    run_loop(two_shards, tpcc.init_state(scale, device="cpu"),
+             batch_per_shard=2, n_batches=2, merge_every=1, liveness=mon)
+    assert mon.window == 2 and mon.detections == []
     # the cold-retry ring is ported; the merge regime refuses it as the
     # reference does
     with pytest.raises(ValueError, match="requires the escrow regime"):

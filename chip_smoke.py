@@ -3,8 +3,8 @@
 alone, the five-transaction mix, the anti-entropy merge of divergent
 replica snapshots, LM serving (a dense and an RWKV-6 model), the dense
 escrow layout, the coordinated 2PC baseline, TPC-C as four replicas on
-one card, their cold-retry ring, and crash recovery with self-detecting
-liveness.
+one card, their cold-retry ring, crash recovery with self-detecting
+liveness, and the fused executor (a chunk of batches as one CUDA graph).
 
     python3 chip_smoke.py
 
@@ -139,7 +139,19 @@ six CUDA kernels of the port from ``src/repro_torch/kernels/csrc`` (one
      ledgers, strict audits, committed txn/s and the recover call's
      seconds, each serving replica's step one txn_megastep launch; (d)
      the same rows at the reference's toy scale, held to the committed
-     ``BENCH_escrow_failures.json`` and ``BENCH_liveness.json``.
+     ``BENCH_escrow_failures.json`` and ``BENCH_liveness.json``;
+ 19. the fused executor (``run_loop(fused=True)``, the default; phases 1-18
+     pin ``fused=False``): on phase 4's deployment and on phase 16's four
+     shards, merge New-Order, the merge mix, escrow New-Order through
+     txn_megastep and through escrow_admit, and the escrow mix, each chunk
+     of ``MERGE_EVERY`` batches one CUDA graph replay; three fused and three
+     dispatch runs in turns, all bit-equal (state, escrow, counts), the
+     first audited; B1, B2 and B3 launches a run equal to dispatch's,
+     counted through the replays; txn/s both ways with the spread; the
+     device time of one chunk replay and one drain (CUDA events in the run,
+     and queued behind a spin) and the graph's pool bytes; then phase 17's
+     ``retry_max=3`` run and phase 18 (b)'s stop-beat run through
+     ``fused=True``, held to the JAX package's counts.
 
 The deployment is TPC-C at the specification's per-warehouse cardinalities
 (TPC-C standard specification, clause 4.3.3.1: 10 districts, 3000 customers
@@ -155,7 +167,7 @@ the launcher's seeded prompts of 2-512 tokens, 32 new tokens each and
 SmolLM's context of 2048 as the KV capacity.
 
 Launch counters are set to 0 just before each main path (phases 3-4, 7,
-8, 10, 11, 12, 14, 15 and each run of 16, 17 and 18) and read just
+8, 10, 11, 12, 14, 15 and each run of 16, 17, 18 and 19) and read just
 after. The second-to-last line of output is the kernels' JSON record;
 the last line is the device record. Any failure exits non-zero; so does
 a machine without a CUDA device.
@@ -389,11 +401,13 @@ def walk_costs(timing, first, hard):
 
 
 def escrow_run(scale, admission, effects, device=None, batch=BATCH,
-               n_batches=N_BATCHES, audit=True, mix=None, **engine_kw):
+               n_batches=N_BATCHES, audit=True, mix=None, fused=False,
+               **engine_kw):
     """The escrow main path (``mix``: the run_loop knobs of the
     five-transaction mix; ``engine_kw``: the layout's, ``escrow_layout``
-    and ``hot_items``). Returns (state, escrow, stats, audit report, with
-    the escrow-coverage check it ran)."""
+    and ``hot_items``), by dispatch unless ``fused``. Returns (state,
+    escrow, stats, audit report, with the escrow-coverage check it
+    ran)."""
     from repro_torch.txn import assert_audit, init_state, run_loop
     from repro_torch.txn.engine import single_host_engine
 
@@ -407,7 +421,7 @@ def escrow_run(scale, admission, effects, device=None, batch=BATCH,
         eng, state, batch_per_shard=batch, n_batches=n_batches,
         remote_frac=REMOTE_FRAC, merge_every=MERGE_EVERY,
         refresh_every=REFRESH_EVERY, item_skew=ITEM_SKEW, seed=SEED,
-        **(mix or {}))
+        fused=fused, **(mix or {}))
     rep = ""
     if audit:
         t0 = time.perf_counter()
@@ -1260,7 +1274,8 @@ def replicas_on_one_card(scale):
     R, bps = SHARDS, BATCH // SHARDS
     per_run = R * (N_BATCHES + 1)       # a launch a shard a batch + warm-up
     loop = dict(batch_per_shard=bps, n_batches=N_BATCHES,
-                remote_frac=REMOTE_FRAC, merge_every=MERGE_EVERY, seed=SEED)
+                remote_frac=REMOTE_FRAC, merge_every=MERGE_EVERY, seed=SEED,
+                fused=False)
     counts = lambda m: (m.neworders, m.aborts, m.cold_rejects, m.refreshes,
                         m.anti_entropy_rounds)
     launches = dict.fromkeys(("escrow_admit", "txn_megastep", "ramp_read"),
@@ -1522,8 +1537,8 @@ def ring_run(scale, tag, eng, state=None, esc=None, n_batches=None,
     """One run of ``RING_RUNS[tag]`` (``over`` replacing its knobs) under
     ``RING``'s traffic for ``n_batches`` (default ``N_BATCHES``), from
     ``init_state`` unless ``state`` is given, strictly audited; launch
-    counts from 0. Returns (state, escrow, stats, ring, (B1, B2)
-    launches)."""
+    counts from 0; by dispatch unless ``over`` says ``fused=True``.
+    Returns (state, escrow, stats, ring, (B1, B2) launches)."""
     import torch
 
     from repro_torch.kernels.escrow_admit import escrow_admit_cuda
@@ -1540,7 +1555,7 @@ def ring_run(scale, tag, eng, state=None, esc=None, n_batches=None,
     s, e, m, ring = run_loop(
         eng, state, esc, batch_per_shard=BATCH // SHARDS,
         n_batches=N_BATCHES if n_batches is None else n_batches,
-        return_retry=True, **dict(RING, **knobs))
+        return_retry=True, **dict(dict(RING, fused=False), **knobs))
     got = (escrow_admit_cuda.launches, txn_megastep_cuda.launches)
     if audit:
         assert_audit(s, escrow=e, initial_stock=_initial_stock(scale),
@@ -2062,6 +2077,177 @@ def sim_rows():
     return launches
 
 
+# phase 19: the fused executor. Phase 4's deployment (R = 1) and phase 16's
+# (R = SHARDS), each row's stream through run_loop(fused=True), a chunk of
+# MERGE_EVERY batches one CUDA graph replay, and by dispatch, in turns
+FUSED_RUNS = 3
+STRICT_KERNEL = dict(stock_invariant="strict", admission="kernel")
+FUSED_ROWS = {
+    "merge New-Order": ({}, {}),
+    "merge mix": ({}, MIX),
+    "escrow New-Order, txn_megastep": (dict(STRICT_KERNEL, effects="fused"),
+                                       {}),
+    "escrow New-Order, escrow_admit": (dict(STRICT_KERNEL, effects="scan"),
+                                       {}),
+    "escrow mix": (dict(STRICT_KERNEL, effects="fused"), MIX),
+}
+CHUNK_KERNELS = ("escrow_admit", "txn_megastep", "ramp_read")
+
+
+def _mix_counts(m):
+    return (m.neworders, m.aborts, m.cold_rejects, m.refreshes,
+            m.anti_entropy_rounds, m.payments, m.order_statuses,
+            m.stock_levels, m.deliveries, m.reads_found,
+            m.fractures_observed, m.lines_repaired)
+
+
+def fused_row(scale, R, row, smi, tables):
+    """One row of phase 19 on R shards: ``FUSED_RUNS`` fused runs and as
+    many by dispatch, in turns, each from the same initial state, every one
+    bit-equal to the first (state, escrow, counts), which is audited; each
+    run's B1, B2 and B3 launches equal (counted through the replays); the
+    device time of one chunk replay and one drain (CUDA events inside the
+    last fused run, and queued behind a spin after it) and the graphs'
+    pool bytes. ``tables`` is ``init_state(scale, seed=SEED)``, which the
+    runs copy. Returns the row's launches by kernel."""
+    import statistics
+
+    from repro_torch.txn import assert_audit, run_loop, tpcc
+    from repro_torch.txn.engine import Engine
+    from repro_torch.txn.executor import KERNELS as kernels
+    from repro_torch.txn.executor import get_fused_executor
+
+    ekw, mix = FUSED_ROWS[row]
+    escrow = bool(ekw)
+    eng = Engine(scale, n_shards=R, **ekw)
+    base = tpcc.copy_tree(tables)
+    loop = dict(batch_per_shard=BATCH // R, n_batches=N_BATCHES,
+                remote_frac=REMOTE_FRAC, merge_every=MERGE_EVERY, seed=SEED,
+                **mix)
+    if escrow:
+        base.s_quantity.mul_(STOCK_MULTIPLIER)
+        loop.update(refresh_every=REFRESH_EVERY, item_skew=ITEM_SKEW)
+    total = dict.fromkeys(CHUNK_KERNELS, 0)
+    tput = {"fused": [], "dispatch": []}
+    per_run = {"fused": set(), "dispatch": set()}
+    first = None
+    for _ in range(FUSED_RUNS):
+        for fused in (True, False):
+            mode = "fused" if fused else "dispatch"
+            for k in kernels:
+                k.launches = 0
+            s, e, m = run_loop(eng, tpcc.copy_tree(base), fused=fused,
+                               **loop)
+            got = tuple(k.launches for k in kernels)
+            for name, n in zip(CHUNK_KERNELS, got):
+                total[name] += n
+            per_run[mode].add(got)
+            tput[mode].append(m.throughput)
+            if first is None:
+                rep = (assert_audit(s, escrow=e, initial_stock=base.s_quantity,
+                                    strict_stock=True) if escrow
+                       else assert_audit(s))
+                first = (s, e, _mix_counts(m), rep.describe())
+            else:
+                bad = _same(s, first[0]) + (_same(e, first[1]) if escrow
+                                            else [])
+                if bad or _mix_counts(m) != first[2]:
+                    raise AssertionError(f"fused [{row}, R={R}]: {mode} run "
+                                         f"!= the first fused run: {bad} "
+                                         f"{_mix_counts(m)} {first[2]}")
+            del s, e
+    # B1 with effects "scan", B2 with "fused", B3 with the mix's reads
+    want = (escrow and ekw["effects"] == "scan",
+            escrow and ekw["effects"] == "fused", bool(mix))
+    if len(per_run["fused"]) != 1 or per_run["fused"] != per_run["dispatch"] \
+            or tuple(n > 0 for n in next(iter(per_run["fused"]))) != want:
+        raise AssertionError(f"fused [{row}, R={R}]: launches {per_run}")
+    ex = get_fused_executor(eng, ring_rows=MERGE_EVERY,
+                            deliveries=bool(mix))
+    run = ex.last_run
+    g = run["graphs"][MERGE_EVERY]
+    if g.replays != N_BATCHES // MERGE_EVERY or len(run["graphs"]) != 1:
+        raise AssertionError(f"fused [{row}, R={R}]: {g.replays} replays")
+    st, ring, _, esc = g.live
+    drain = ((lambda: ex.drain_refresh(st, ring, esc)) if escrow
+             else (lambda: ex.drain(st, ring)))
+    launches = next(iter(per_run["fused"]))
+    out = dict(
+        counts=first[2],
+        txn_s=tput, spread={k: [min(v), max(v)] for k, v in tput.items()},
+        launches_a_batch={k: n / (N_BATCHES + 1) for k, n in
+                          zip(CHUNK_KERNELS, launches)},
+        chunk_ms_in_run=statistics.median(run["chunk_ms"]),
+        drain_ms_in_run=statistics.median(run["drain_ms"]),
+        chunk_ms=_time_ms(g.graph.replay, 3), drain_ms=_time_ms(drain, 3),
+        pool_bytes=g.pool_bytes, replays=g.replays,
+        captured=dict(g.launches))
+    print(f"fused [{row}, R={R}] ({smi}): {json.dumps(out)}; bit-equal "
+          f"to dispatch in {2 * FUSED_RUNS} runs in turns; {first[3]}")
+    del first, st, ring, esc, g, run, ex, eng, base
+    return total
+
+
+def fused_executor(scale, smi):
+    """Phase 19: every row of ``FUSED_ROWS`` on phase 4's deployment and
+    on phase 16's ``SHARDS`` shards (:func:`fused_row`); then phase 17's
+    ``retry_max=3`` run and phase 18 (b)'s stop-beat run through
+    ``fused=True``, held to the JAX package's counts (``RING_REFERENCE``,
+    ``LIVE_REFERENCE``), the rm3 run bit-equal to its dispatch run (state,
+    escrow; the ring's lanes an owner, gathered in another order). Returns
+    each kernel's launches."""
+    import torch
+
+    from repro_torch.runtime.liveness import LeaseMonitor
+    from repro_torch.txn import init_state
+
+    launches = dict.fromkeys(CHUNK_KERNELS, 0)
+    tables = init_state(scale, seed=SEED)
+    for R in (1, SHARDS):
+        for row in FUSED_ROWS:
+            t0 = time.perf_counter()
+            for k, n in fused_row(scale, R, row, smi, tables).items():
+                launches[k] += n
+            torch.cuda.empty_cache()
+            print(f"fused [{row}, R={R}]: {time.perf_counter() - t0:.1f} s")
+    del tables
+    b2 = ring_engine(scale)
+    per_run = (0, SHARDS * (N_BATCHES + 1))
+    s, e, m, ring, got = ring_run(scale, "rm3", b2, fused=True)
+    sd, ed, md, rd, gotd = ring_run(scale, "rm3", b2, audit=False)
+    lanes = lambda r: [sorted(zip(*(x[o][r.valid[o]].tolist()  # noqa: E731
+                                    for x in r))) for o in range(SHARDS)]
+    bad = _same(s, sd) + _same(e, ed)
+    c = ring_counts(m, ring)
+    if bad or lanes(ring) != lanes(rd) or c != RING_REFERENCE["rm3"] \
+            or got != per_run or gotd != per_run:
+        raise AssertionError(f"fused ring [rm3]: {bad} {c} launches {got}")
+    print(f"fused ring [rm3]: counts {c} (the JAX package's), bit-equal to "
+          f"dispatch (state, escrow; the ring's lanes an owner); "
+          f"{m.throughput:,.0f} txn/s fused, {md.throughput:,.0f} by "
+          f"dispatch; launches={got}")
+    del s, e, ring, sd, ed, rd
+    mon = LeaseMonitor(SHARDS, expiry=LIVE["expiry"],
+                       hysteresis=LIVE["hysteresis"],
+                       source=stop_beat(SHARDS, LIVE["dead"], LIVE["stop"]))
+    s, e, m, ring, got2 = ring_run(scale, "rm3", b2, liveness=mon,
+                                   fused=True)
+    c = (ring_counts(m, ring), mon.detection_lags())
+    dead = int(e.shares[LIVE["dead"]].sum())
+    if c != LIVE_REFERENCE or dead or got2 != per_run:
+        raise AssertionError(f"fused liveness: {c} dead slot {dead} "
+                             f"launches {got2}")
+    print(f"fused liveness: replica {LIVE['dead']} stops beating: counts "
+          f"{c[0]}, lags {c[1]} (the JAX package's), the dead slot 0 "
+          f"shares; {m.throughput:,.0f} txn/s; launches={got2}")
+    del s, e, ring
+    torch.cuda.empty_cache()
+    for n in (got, gotd, got2):
+        launches["escrow_admit"] += n[0]
+        launches["txn_megastep"] += n[1]
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2122,7 +2308,7 @@ def main() -> int:
     state = init_state(scale, seed=SEED)
     state, _, st = run_loop(merge, state, batch_per_shard=BATCH,
                             n_batches=N_BATCHES, remote_frac=REMOTE_FRAC,
-                            merge_every=MERGE_EVERY, seed=SEED)
+                            merge_every=MERGE_EVERY, seed=SEED, fused=False)
     t0 = time.perf_counter()
     rep = assert_audit(state).describe()
     print(f"merge: {st.neworders} New-Orders committed, "
@@ -2208,7 +2394,8 @@ def main() -> int:
     state = init_state(scale, seed=SEED)
     state, _, mm = run_loop(merge, state, batch_per_shard=BATCH,
                             n_batches=N_BATCHES, remote_frac=REMOTE_FRAC,
-                            merge_every=MERGE_EVERY, seed=SEED, **MIX)
+                            merge_every=MERGE_EVERY, seed=SEED, fused=False,
+                            **MIX)
     launches["ramp_read"] = ramp_read_cuda.launches
     t0 = time.perf_counter()
     rep = assert_audit(state).describe()
@@ -2308,6 +2495,12 @@ def main() -> int:
     launches["txn_megastep"] += liveness_runs(scale)
     launches["txn_megastep"] += sim_rows()
     print(f"recovery: phase 18 in {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 19: the fused executor, launch counts from 0 -----------------
+    t0 = time.perf_counter()
+    for k, n in fused_executor(scale, smi).items():
+        launches[k] += n
+    print(f"fused: phase 19 in {time.perf_counter() - t0:.1f} s")
     print(f"launches, every main path: {json.dumps(launches)}")
 
     for k in ("ramp_read", "lattice_merge", "flash_attention", "rwkv6_scan"):

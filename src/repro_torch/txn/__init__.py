@@ -1,6 +1,6 @@
 # TPC-C on one card: the port of repro.txn (the five-transaction mix in the
-# merge and escrow regimes, both escrow layouts, the RAMP reads, the
-# dispatch closed loop, the 2PC baseline, the audit, crash recovery).
+# merge and escrow regimes, both escrow layouts, the RAMP reads, the closed
+# loop fused and by dispatch, the 2PC baseline, the audit, crash recovery).
 from .tpcc import (TPCCScale, TPCCState, NewOrderBatch, OrderStatusBatch,
                    PaymentBatch, StockDelta, StockLevelBatch,
                    init_state, generate_neworder, generate_order_status,
@@ -16,8 +16,12 @@ from .ramp import (OrderStatusResult, StockLevelResult, apply_order_status,
                    apply_stock_level, conceal_lines, delivery_read,
                    publish_lines, read_lines)
 from .engine import Engine, plan_engine, single_host_engine
-from .drivers import (MixStats, RunStats, generate_mix_batches,
-                      generate_neworder_stream, run_loop)
+from .executor import (FusedExecutor, MixChunk, MixCounters, OutboxRing,
+                       get_fused_executor, stack_chunks)
+from .drivers import (MixStats, RunStats, counters_to_stats,
+                      generate_mix_batches, generate_neworder_stream,
+                      run_closed_loop, run_escrow_loop, run_fused_escrow_loop,
+                      run_fused_loop, run_loop, run_mixed_loop)
 from .twopc import TwoPCEngine, run_closed_loop_2pc
 from .audit import AuditReport, assert_audit, audit_tpcc
 from .recovery import RestoredRun, restore_run, save_run

@@ -1,5 +1,15 @@
-"""The TPC-C closed loop on one card: the port of
-``repro.txn.drivers.run_loop`` on its per-batch dispatch path.
+"""The TPC-C closed loop on one card: the port of ``repro.txn.drivers``.
+
+:func:`run_loop` is the one core; ``fused=True`` (the default, as in the
+reference) runs the fused executor (``txn/executor.py``: on the card each
+chunk of ``merge_every`` batches is one CUDA graph replay), ``fused=False``
+the per-batch dispatch path, and ``legacy=True`` the dispatch path with the
+seed's host behaviour (a host read of every batch's stats, and in the
+merge regime one anti-entropy call an outbox). Both paths, and every
+knob below, give the same state, escrow and stats, with one exception the
+reference has too: the fused path gathers the outboxes shard-major, the
+dispatch path row-major, so at R > 2 shards a cold-retry ring holds its
+entries in another lane order, and where it overflows other entries drop.
 
 * **stream** — one source draws the home-partitioned batches of every
   transaction type (the reference's numpy stream, so both packages run the
@@ -25,7 +35,11 @@
 * **audit** — ``audit=True`` runs the consistency oracle on the final
   state.
 
-Stat accumulators stay on the device; the host reads them once at the end.
+Stat accumulators stay on the device; the host reads them once at the end
+(``legacy`` reads them every batch). ``run_closed_loop``,
+``run_mixed_loop``, ``run_escrow_loop``, ``run_fused_loop`` and
+``run_fused_escrow_loop`` are the reference's signature-compatible
+wrappers.
 """
 
 from __future__ import annotations
@@ -111,6 +125,17 @@ class _OutboxWindow:
         return self._n
 
 
+def counters_to_stats(counters, *, anti_entropy_rounds: int,
+                      wall_seconds: float, refreshes: int = 0,
+                      cold_rejects: int = 0) -> MixStats:
+    """One host read of the fused executor's ``MixCounters``."""
+    c = [int(x.sum()) for x in torch.stack(list(counters)).cpu()]
+    c = dict(zip(counters._fields, c))
+    return MixStats(anti_entropy_rounds=anti_entropy_rounds,
+                    refreshes=refreshes, cold_rejects=cold_rejects,
+                    wall_seconds=wall_seconds, **c)
+
+
 def generate_neworder_stream(engine, *, batch_per_shard: int,
                              n_batches: int, remote_frac: float,
                              rng: np.random.Generator, ts0: int = 0,
@@ -157,13 +182,6 @@ def _adaptive_refresh_due(aborts_since, txns_since, rate: float) -> bool:
     return bool((ab > rate * tx).any())
 
 
-_NOT_PORTED = {
-    "fused": "the fused executor with CUDA graphs is ROADMAP Queue A item 5",
-    "obs": "the observability plane is ROADMAP Queue A item 9, parts 4-5, "
-           "behind the fused executor (item 5)",
-}
-
-
 def run_loop(engine, state: TPCCState, esc=None, *,
              batch_per_shard: int, n_batches: int,
              remote_frac: float = 0.01, merge_every: int = 8,
@@ -171,15 +189,25 @@ def run_loop(engine, state: TPCCState, esc=None, *,
              read_frac: float = 0.25, item_skew: float = 0.0, seed: int = 0,
              payments: bool = False, reads: bool = False,
              deliveries: bool = False, audit: bool = False, alive=None,
-             fused: bool = False, retry_cap: int = 0, retry_max: int = 0,
-             retry=None, retry_reserve: int = 0, final_flush: bool = True,
-             return_retry: bool = False, liveness=None, obs=None):
-    """Drive the engine's plan-selected regime over a pre-generated stream,
-    batch by batch.
+             fused: bool = True, legacy: bool = False, retry_cap: int = 0,
+             retry_max: int = 0, retry=None, retry_reserve: int = 0,
+             final_flush: bool = True, return_retry: bool = False,
+             liveness=None, obs=None):
+    """Drive the engine's plan-selected regime over a pre-generated stream.
+
+    ``fused=True`` runs the fused executor: on the card each chunk of
+    ``merge_every`` batches is one CUDA graph replay, then the drain (and
+    refresh) at the host's cadence; on the CPU the chunk runs eagerly.
+    ``fused=False`` runs batch by batch; ``legacy=True`` (which implies
+    ``fused=False``) adds the seed's per-batch host reads of the stats and,
+    in the merge regime, one anti-entropy call an outbox. Every mode gives
+    the same state, escrow and stats (but for the retry ring's order at
+    R > 2: see the module docstring).
 
     The state's tensors are updated in place. Batches are generated before
-    the timed loop; one warm-up pass on copies (which builds the kernels on
-    the card) precedes it, so ``wall_seconds`` covers all ``n_batches``.
+    the timed loop; a warm-up on copies (which builds the kernels on the
+    card, and there captures the graphs) precedes it, so ``wall_seconds``
+    covers all ``n_batches``.
     ``payments``, ``reads`` and ``deliveries`` add Payment, the two RAMP
     reads (``read_frac`` of the batch each) and Delivery to every batch.
     With ``reads`` the stream is the mix's (:func:`generate_mix_batches`),
@@ -188,7 +216,7 @@ def run_loop(engine, state: TPCCState, esc=None, *,
     into every refresh; ``liveness`` (a ``runtime.liveness.LeaseMonitor``)
     replaces it with a self-derived mask: the monitor ticks once per drain
     window of the escrow regime and its alive mask feeds that window's
-    refresh. ``fused`` and ``obs`` belong to later slices and raise
+    refresh. ``obs`` belongs to a later slice and raises
     ``NotImplementedError``.
 
     The cold-retry ring (escrow regime, sparse layout): ``retry_cap`` > 0
@@ -207,10 +235,11 @@ def run_loop(engine, state: TPCCState, esc=None, *,
     ``stats.cold_rejects``, 0 in the dense layout, which has no cold
     tier).
     """
-    asked = dict(fused=fused, obs=obs is not None)
-    for knob, on in asked.items():
-        if on:
-            raise NotImplementedError(_NOT_PORTED[knob])
+    if obs is not None:
+        raise NotImplementedError("the observability plane is ROADMAP "
+                                  "Queue A item 9, parts 4-5")
+    if legacy:
+        fused = False
     escrow = engine.stock_regime is CoordClass.ESCROW
     if retry_cap > 0 and not escrow:
         raise ValueError("retry_cap > 0 requires the escrow regime "
@@ -234,14 +263,19 @@ def run_loop(engine, state: TPCCState, esc=None, *,
                                        batch_per_shard)
                  for _ in range(n_batches)] if payments else None
         os_b = sl_b = None
-    state, esc, stats, retry = _dispatch_loop(
-        engine, state, esc, no_b, pay_b, os_b, sl_b,
-        batch_per_shard=batch_per_shard, merge_every=merge_every,
-        refresh_every=refresh_every, refresh_abort_rate=refresh_abort_rate,
-        deliveries=deliveries, escrow=escrow, alive=alive,
-        retry_cap=retry_cap, retry_max=retry_max, retry=retry,
-        retry_reserve=retry_reserve, final_flush=final_flush,
-        liveness=liveness)
+    knobs = dict(merge_every=merge_every, refresh_every=refresh_every,
+                 refresh_abort_rate=refresh_abort_rate, deliveries=deliveries,
+                 escrow=escrow, alive=alive, retry_cap=retry_cap,
+                 retry_max=retry_max, retry=retry,
+                 retry_reserve=retry_reserve, final_flush=final_flush,
+                 liveness=liveness)
+    if fused:
+        state, esc, stats, retry = _fused_loop(
+            engine, state, esc, no_b, pay_b, os_b, sl_b, **knobs)
+    else:
+        state, esc, stats, retry = _dispatch_loop(
+            engine, state, esc, no_b, pay_b, os_b, sl_b,
+            batch_per_shard=batch_per_shard, legacy=legacy, **knobs)
     if audit:
         from .audit import assert_audit
         if escrow:
@@ -252,6 +286,32 @@ def run_loop(engine, state: TPCCState, esc=None, *,
     if return_retry:
         return state, esc, stats, retry
     return state, esc, stats
+
+
+def _fused_loop(engine, state, esc, no_b, pay_b, os_b, sl_b, *,
+                merge_every, refresh_every, refresh_abort_rate, deliveries,
+                escrow, alive, retry_cap=0, retry_max=0, retry=None,
+                retry_reserve=0, final_flush=True, liveness=None):
+    """The fused path: the stream stacked into chunks of ``merge_every``
+    batches on the device, then :class:`~repro_torch.txn.executor.
+    FusedExecutor` (the engine's, built once)."""
+    from .executor import get_fused_executor, stack_chunks
+
+    chunks = stack_chunks(no_b, pay_b, os_b, sl_b, merge_every)
+    ex = get_fused_executor(engine, ring_rows=merge_every,
+                            deliveries=deliveries, retry_cap=retry_cap)
+    if escrow:
+        state, esc, counters, wall, refreshes, cold, retry = ex.run_escrow(
+            state, esc, chunks, refresh_every=refresh_every,
+            refresh_abort_rate=refresh_abort_rate, retry=retry,
+            retry_max=retry_max, alive=alive, liveness=liveness,
+            reserve=retry_reserve, final_flush=final_flush)
+        return state, esc, counters_to_stats(
+            counters, anti_entropy_rounds=len(chunks), wall_seconds=wall,
+            refreshes=refreshes, cold_rejects=cold), retry
+    state, counters, wall = ex.run(state, chunks)
+    return state, None, counters_to_stats(
+        counters, anti_entropy_rounds=len(chunks), wall_seconds=wall), retry
 
 
 def _drain(engine, state, window: _OutboxWindow, escrow: bool, ring=None,
@@ -271,9 +331,12 @@ def _dispatch_loop(engine, state, esc, no_b, pay_b, os_b, sl_b, *,
                    batch_per_shard, merge_every, refresh_every,
                    refresh_abort_rate, deliveries, escrow, alive,
                    retry_cap=0, retry_max=0, retry=None, retry_reserve=0,
-                   final_flush=True, liveness=None):
+                   final_flush=True, liveness=None, legacy=False):
     """The per-batch dispatch path: one engine call per transaction type
-    per batch."""
+    per batch. ``legacy`` reads the stats on the host every batch and, in
+    the merge regime, drains each outbox in its own anti-entropy call (the
+    escrow regime drains a whole window in every mode: the cold tier's
+    all-or-nothing admission is defined over the window)."""
     ring = None                  # the live cold-retry ring, where there is one
     if escrow and retry_cap > 0:
         ring = engine.init_retry(retry_cap) if retry is None else retry
@@ -301,12 +364,17 @@ def _dispatch_loop(engine, state, esc, no_b, pay_b, os_b, sl_b, *,
         engine.stock_level_step(warm, sl_b[0])
     if deliveries:
         warm, _ = engine.delivery_step(warm)
+    per_outbox = legacy and not escrow
     window = _OutboxWindow(outbox, rows)
-    window.put(outbox)
-    # the warm-up drains through a fresh ring, never the live one
-    warm, _, _ = _drain(engine, warm, window, escrow,
-                        None if ring is None else engine.init_retry(retry_cap),
-                        retry_max, retry_reserve)
+    if per_outbox:
+        warm = engine.anti_entropy(warm, outbox)
+    else:
+        window.put(outbox)
+        # the warm-up drains through a fresh ring, never the live one
+        warm, _, _ = _drain(engine, warm, window, escrow,
+                            None if ring is None
+                            else engine.init_retry(retry_cap),
+                            retry_max, retry_reserve)
     if escrow:
         engine.refresh_escrow(warm, wesc, alive)
     window.clear()
@@ -314,7 +382,11 @@ def _dispatch_loop(engine, state, esc, no_b, pay_b, os_b, sl_b, *,
     del warm, outbox
 
     stats = MixStats()
-    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    # legacy: Python ints, each add a host read (the seed's behaviour)
+    host = (lambda x: int(x.sum())) if legacy else \
+        (lambda x: x.sum().to(torch.int32))
+    zero = 0 if legacy else torch.zeros((), dtype=torch.int32, device=dev)
+    pending = []                 # legacy merge regime: the window's outboxes
     # on-device stat accumulators: the host reads them once, at the end
     commit_acc, rej_acc = zero, zero
     found_acc, fract_acc, rep_acc, del_acc = zero, zero, zero, zero
@@ -329,14 +401,17 @@ def _dispatch_loop(engine, state, esc, no_b, pay_b, os_b, sl_b, *,
         if escrow:
             state, esc, outbox, _, ok = engine.neworder_escrow_step(
                 state, esc, no_b[i])
-            commit_acc = commit_acc + ok.sum().to(torch.int32)
+            commit_acc = commit_acc + host(ok)
             if adaptive:
                 pr_commit = pr_commit + ok.reshape(engine.n_shards, -1).sum(
                     1).to(torch.int32)
         else:
             state, outbox, _ = engine.neworder_step(state, no_b[i])
             stats.neworders += B
-        window.put(outbox)
+        if per_outbox:
+            pending.append(outbox)
+        else:
+            window.put(outbox)
         if pay_b is not None:
             state = engine.payment_step(state, pay_b[i])
             stats.payments += B
@@ -345,21 +420,29 @@ def _dispatch_loop(engine, state, esc, no_b, pay_b, os_b, sl_b, *,
             sl_res = engine.stock_level_step(state, sl_b[i])
             stats.order_statuses += R
             stats.stock_levels += R
-            found_acc = found_acc + os_res.found.sum()
-            fract_acc = (fract_acc + os_res.fractures_observed()
-                         + (sl_res.fractured - sl_res.repaired).sum())
-            rep_acc = rep_acc + os_res.repaired.sum() + sl_res.repaired.sum()
+            found_acc = found_acc + host(os_res.found)
+            fract_acc = (fract_acc + host(os_res.found & (os_res.lines_read
+                                                          < os_res.n_lines))
+                         + host(sl_res.fractured - sl_res.repaired))
+            rep_acc = rep_acc + host(os_res.repaired) + host(sl_res.repaired)
         if deliveries:
             state, delivered = engine.delivery_step(state)
-            del_acc = del_acc + delivered.sum()
-        if len(window) == merge_every or i == n_batches - 1:
+            del_acc = del_acc + host(delivered)
+        if max(len(window), len(pending)) == merge_every \
+                or i == n_batches - 1:
             # one batched drain of the whole window (Definition 3:
-            # convergence may lag the hot path, but must happen)
-            state, rej, ring = _drain(engine, state, window, escrow, ring,
-                                      retry_max, retry_reserve)
-            if escrow:
-                rej_acc = rej_acc + rej.sum().to(torch.int32)
-            window.clear()
+            # convergence may lag the hot path, but must happen); legacy's
+            # merge regime drains outbox by outbox
+            if per_outbox:
+                for ob in pending:
+                    state = engine.anti_entropy(state, ob)
+                pending = []
+            else:
+                state, rej, ring = _drain(engine, state, window, escrow,
+                                          ring, retry_max, retry_reserve)
+                if escrow:
+                    rej_acc = rej_acc + host(rej)
+                window.clear()
             stats.anti_entropy_rounds += 1
             rounds += 1
             if escrow:
@@ -398,3 +481,114 @@ def _dispatch_loop(engine, state, esc, no_b, pay_b, os_b, sl_b, *,
     stats.lines_repaired = int(rep_acc)
     stats.deliveries = int(del_acc)
     return state, esc, stats, retry if ring is None else ring
+
+
+# ---------------------------------------------------------------------------
+# Signature-compatible wrappers (the public driver API)
+# ---------------------------------------------------------------------------
+
+
+def run_closed_loop(engine, state: TPCCState, *,
+                    batch_per_shard: int, n_batches: int,
+                    remote_frac: float = 0.01, merge_every: int = 8,
+                    seed: int = 0, payments: bool = False,
+                    deliveries: bool = False, fused: bool = True,
+                    refresh_every: int = 1,
+                    refresh_abort_rate: float | None = None,
+                    item_skew: float = 0.0,
+                    ) -> tuple[TPCCState, RunStats]:
+    """New-Order closed loop (+ optional Payment/Delivery riders). On an
+    escrow-regime engine the New-Order-only stream runs the strict hot path
+    and the stats carry aborts/refreshes."""
+    escrow = engine.stock_regime is CoordClass.ESCROW
+    if escrow and (payments or deliveries):
+        raise NotImplementedError(
+            "escrow regime: use run_escrow_loop(mix=True) for the full "
+            "transaction mix")
+    state, _, m = run_loop(
+        engine, state, batch_per_shard=batch_per_shard, n_batches=n_batches,
+        remote_frac=remote_frac, merge_every=merge_every,
+        refresh_every=refresh_every, refresh_abort_rate=refresh_abort_rate,
+        item_skew=item_skew, seed=seed, payments=payments, reads=False,
+        deliveries=deliveries, fused=fused)
+    return state, RunStats(
+        committed=m.neworders, batches=n_batches,
+        anti_entropy_rounds=m.anti_entropy_rounds, aborted=m.aborts,
+        refreshes=m.refreshes, wall_seconds=m.wall_seconds)
+
+
+def run_mixed_loop(engine, state: TPCCState, *,
+                   batch_per_shard: int, n_batches: int,
+                   remote_frac: float = 0.01, merge_every: int = 8,
+                   read_frac: float = 0.25, seed: int = 0,
+                   fused: bool = True, legacy: bool = False,
+                   refresh_every: int = 1,
+                   refresh_abort_rate: float | None = None,
+                   item_skew: float = 0.0, obs=None,
+                   ) -> tuple[TPCCState, MixStats]:
+    """The full five-transaction mix (New-Order, Payment, RAMP Order-Status
+    / Stock-Level, Delivery) under the engine's plan-selected regime."""
+    state, _, stats = run_loop(
+        engine, state, batch_per_shard=batch_per_shard, n_batches=n_batches,
+        remote_frac=remote_frac, merge_every=merge_every,
+        refresh_every=refresh_every, refresh_abort_rate=refresh_abort_rate,
+        read_frac=read_frac, item_skew=item_skew, seed=seed, payments=True,
+        reads=True, deliveries=True, fused=fused, legacy=legacy, obs=obs)
+    return state, stats
+
+
+def run_escrow_loop(engine, state: TPCCState, esc=None, *,
+                    batch_per_shard: int, n_batches: int,
+                    remote_frac: float = 0.01, merge_every: int = 8,
+                    refresh_every: int = 1,
+                    refresh_abort_rate: float | None = None,
+                    read_frac: float = 0.25, seed: int = 0, mix: bool = True,
+                    fused: bool = True, legacy: bool = False,
+                    item_skew: float = 0.0, obs=None,
+                    ) -> tuple[TPCCState, object, MixStats]:
+    """The escrow regime: strict-stock New-Order (plus the rest of the mix
+    when ``mix=True``), one batched strict drain per ``merge_every``
+    window, and the share refresh every ``refresh_every`` drains or when an
+    abort rate crosses ``refresh_abort_rate``. Returns (state, escrow,
+    MixStats): committed New-Orders in ``neworders``, insufficient-share
+    aborts in ``aborts``, owner-side cold rejections in ``cold_rejects``."""
+    engine._require_escrow()
+    return run_loop(
+        engine, state, esc, batch_per_shard=batch_per_shard,
+        n_batches=n_batches, remote_frac=remote_frac,
+        merge_every=merge_every, refresh_every=refresh_every,
+        refresh_abort_rate=refresh_abort_rate, read_frac=read_frac,
+        item_skew=item_skew, seed=seed, payments=mix, reads=mix,
+        deliveries=mix, fused=fused, legacy=legacy, obs=obs)
+
+
+def run_fused_loop(engine, state: TPCCState, *,
+                   batch_per_shard: int, n_batches: int,
+                   remote_frac: float = 0.01, merge_every: int = 8,
+                   read_frac: float = 0.25, seed: int = 0,
+                   ) -> tuple[TPCCState, MixStats]:
+    """The full five-transaction mix on the fused executor (what
+    ``run_mixed_loop(fused=True)`` runs)."""
+    return run_mixed_loop(engine, state, batch_per_shard=batch_per_shard,
+                          n_batches=n_batches, remote_frac=remote_frac,
+                          merge_every=merge_every, read_frac=read_frac,
+                          seed=seed, fused=True)
+
+
+def run_fused_escrow_loop(engine, state: TPCCState, esc=None, *,
+                          batch_per_shard: int, n_batches: int,
+                          remote_frac: float = 0.01, merge_every: int = 8,
+                          refresh_every: int = 1, read_frac: float = 0.25,
+                          seed: int = 0, mix: bool = True,
+                          refresh_abort_rate: float | None = None,
+                          ) -> tuple[TPCCState, object, MixStats]:
+    """The escrow regime on the fused executor (what
+    ``run_escrow_loop(fused=True)`` runs)."""
+    return run_escrow_loop(engine, state, esc,
+                           batch_per_shard=batch_per_shard,
+                           n_batches=n_batches, remote_frac=remote_frac,
+                           merge_every=merge_every,
+                           refresh_every=refresh_every,
+                           refresh_abort_rate=refresh_abort_rate,
+                           read_frac=read_frac, seed=seed, mix=mix,
+                           fused=True)

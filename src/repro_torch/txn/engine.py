@@ -270,11 +270,13 @@ class Engine:
 
     # -- the rest of the five-transaction mix ---------------------------------
 
-    def payment_step(self, state: TPCCState, batch: PaymentBatch
-                     ) -> TPCCState:
+    def payment_step(self, state: TPCCState, batch: PaymentBatch,
+                     rounds: int | None = None) -> TPCCState:
+        """Payment on every shard; ``rounds`` as ``tpcc.apply_payment``'s
+        (None: each shard reads its batch's depth on the host)."""
         for r, b in enumerate(self._parts(batch)):
             tpcc.apply_payment(self.shard_view(state, r), b,
-                               w_lo=self._bounds(r)[0])
+                               w_lo=self._bounds(r)[0], rounds=rounds)
         return state
 
     def delivery_step(self, state: TPCCState
@@ -327,7 +329,9 @@ class Engine:
 
     def refresh_escrow(self, state: TPCCState, esc, alive=None):
         """Re-partition the post-drain stock into fresh shares (the hot
-        cells' in the sparse layout, every cell's in the dense one).
+        cells' in the sparse layout, every cell's in the dense one), written
+        into ``esc``'s own tensors, which are returned: whatever holds them
+        (a captured CUDA graph of the fused executor) reads the new shares.
         ``alive`` ([n_shards] mask, default all live) gives dead replicas'
         headroom to the survivors."""
         self._require_escrow()
@@ -335,11 +339,15 @@ class Engine:
             alive = torch.ones((self.n_shards,), dtype=torch.int32,
                                device=self.device)
         if self.escrow_layout == "sparse":
-            return gather_and_refresh_hot_shares(
+            new = gather_and_refresh_hot_shares(
                 state, esc.keys, self.n_shards, self.scale.n_items,
                 self.w_per_shard, alive=alive)
-        return gather_and_refresh_shares(state, self.n_shards,
-                                         self.w_per_shard, alive=alive)
+        else:
+            new = gather_and_refresh_shares(state, self.n_shards,
+                                            self.w_per_shard, alive=alive)
+        esc.shares.copy_(new.shares)
+        esc.spent.zero_()
+        return esc
 
     def drain_strict(self, state: TPCCState, outbox: StockDelta
                      ) -> tuple[TPCCState, torch.Tensor]:

@@ -372,17 +372,24 @@ def _put_rows(table: Tensor, flat: Tensor, vals, keep: Tensor | None):
     and masking by ``nonzero`` would synchronise with the host. So a
     dropped row is redirected to repeat the first kept row's write (same
     index, same value, so duplicates cannot race), or, when no row is kept,
-    to rewrite row 0's current value: a no-op either way.
+    to rewrite row 0's current value: a no-op either way. Nothing here
+    reads back to the host (a 0-d index tensor would: it is read as an
+    int), so a CUDA graph can capture it.
     """
     view = table.view(-1, *table.shape[3:])
-    vals = torch.as_tensor(vals, dtype=table.dtype, device=table.device)
+    if torch.is_tensor(vals):
+        vals = vals.to(table.dtype)
+    else:
+        vals = torch.full((), vals, dtype=table.dtype, device=table.device)
     vals = vals.expand(flat.shape[0], *table.shape[3:])
     if keep is not None:
-        j = keep.to(torch.int32).argmax()
+        j = keep.to(torch.int32).argmax().reshape(1)
         row_keep = keep.reshape(-1, *([1] * (table.dim() - 3)))
-        fallback = torch.where(keep.any(), vals[j], view[flat[j]])
+        first = flat.index_select(0, j)
+        fallback = torch.where(keep.any(), vals.index_select(0, j),
+                               view.index_select(0, first))
         vals = torch.where(row_keep, vals, fallback)
-        flat = torch.where(keep, flat, flat[j])
+        flat = torch.where(keep, flat, first)
     view.index_put_((flat,), vals)
 
 
@@ -575,6 +582,15 @@ def resolve_admission(admission: str, batch: int, n_lines: int | None = None,
             return resolve_admission_cutover(batch, n_lines, device=device)
         return "kernel" if batch >= AUTO_KERNEL_MIN_BATCH else "scan"
     return admission
+
+
+def admission_resolved(admission: str, batch: int, n_lines: int,
+                       device) -> bool:
+    """Whether :func:`resolve_admission` answers this shape without the
+    timing probe (which synchronises, so no CUDA graph may capture it)."""
+    if admission != "auto" or not ADMISSION_AUTOTUNE:
+        return True
+    return (torch.device(device).type, batch, n_lines) in _CUTOVER_CACHE
 
 
 EFFECTS_MODES = ("scan", "fused")
@@ -1061,18 +1077,35 @@ def apply_stock_updates_strict_tiered_retry(
 # ---------------------------------------------------------------------------
 
 
+def payment_rounds(w: Tensor) -> int:
+    """The chaining rounds Payment's ordered adds need for batches of home
+    warehouses ``w`` (``[..., B]``, one batch a row): the most adds one
+    warehouse of one batch takes, less one. The (w, d) and (w, d, c) keys
+    repeat no more often than w does, so this covers all three of
+    :func:`apply_payment`'s adds. One host read."""
+    if w.numel() == 0:
+        return 0
+    rows = w.reshape(-1, w.shape[-1]).cpu().numpy()
+    return max(int(np.bincount(r).max()) for r in rows) - 1
+
+
 def _add_in_batch_order(tables: tuple[Tensor, ...], idx: tuple[Tensor, ...],
-                        vals: tuple[Tensor, ...]) -> None:
+                        vals: tuple[Tensor, ...],
+                        rounds: int | None = None) -> None:
     """``table[idx[b]] += val[b]`` for each table, in batch order: the adds
     that land on one cell land one after another, ``((v + a0) + a1) + ..``,
     which is how XLA's scatter-add runs on the CPU. Float adds do not
     associate, and torch's ``index_put_(accumulate=True)`` sums duplicate
     indices otherwise on the card, so the order is made explicit.
 
-    Each add's running value chains from the previous add to the same cell
-    (one round per duplicate depth, the depth read once on the host); then
-    every add writes its cell's final value, so duplicates write the same
-    value and the scatter cannot race."""
+    Each add's running value chains from the previous add to the same cell,
+    one round per duplicate depth; then every add writes its cell's final
+    value, so duplicates write the same value and the scatter cannot race.
+    ``rounds`` is the number of rounds; None reads the batch's deepest
+    duplicate once on the host. More rounds than the batch needs change
+    nothing (``depth == r`` matches no add), so a static count taken over a
+    chunk of batches (:func:`payment_rounds`) gives the same floats and
+    lets a CUDA graph capture the adds."""
     shape = tables[0].shape
     flat = torch.zeros_like(idx[0], dtype=torch.long)
     for i, n in zip(idx, shape):
@@ -1084,7 +1117,8 @@ def _add_in_batch_order(tables: tuple[Tensor, ...], idx: tuple[Tensor, ...],
     prev = torch.where(before, pos[None, :], 0).amax(1)   # 0 when first
     last = torch.where(same, pos[None, :], 0).amax(1)
     depth = before.sum(1)
-    rounds = int(depth.max()) if B else 0
+    if rounds is None:
+        rounds = int(depth.max()) if B else 0
     for table, val in zip(tables, vals):
         view = table.view(-1)
         run = view[flat] + val
@@ -1094,16 +1128,17 @@ def _add_in_batch_order(tables: tuple[Tensor, ...], idx: tuple[Tensor, ...],
 
 
 def apply_payment(state: TPCCState, batch: PaymentBatch,
-                  w_lo: int = 0) -> TPCCState:
+                  w_lo: int = 0, rounds: int | None = None) -> TPCCState:
     """Payment: commutative counter increments (I-confluent, Table 2), each
-    landing in batch order (:func:`_add_in_batch_order`)."""
+    landing in batch order (:func:`_add_in_batch_order`; ``rounds`` as
+    there, at least :func:`payment_rounds` of the batch)."""
     w, d, c = batch.w - w_lo, batch.d, batch.c
     amt = batch.amount
-    _add_in_batch_order((state.w_ytd,), (w,), (amt,))
+    _add_in_batch_order((state.w_ytd,), (w,), (amt,), rounds)
     _add_in_batch_order((state.d_ytd, state.h_amount_sum), (w, d),
-                        (amt, amt))
+                        (amt, amt), rounds)
     _add_in_batch_order((state.c_balance, state.c_ytd_payment), (w, d, c),
-                        (-amt, amt))
+                        (-amt, amt), rounds)
     state.c_payment_cnt.index_put_((w.long(), d.long(), c.long()),
                                    torch.ones_like(c), accumulate=True)
     return state
@@ -1136,8 +1171,7 @@ def apply_delivery(state: TPCCState, carrier_id, ts) -> TPCCState:
 
     state.no_valid.index_put_(at, torch.where(has, False, state.no_valid[at]))
     state.o_carrier.index_put_(at, torch.where(
-        has, torch.as_tensor(carrier_id, dtype=torch.int32, device=dev),
-        state.o_carrier[at]))
+        has, carrier_id, state.o_carrier[at]).to(torch.int32))
     state.ol_delivered.index_put_(at, torch.where(
         has[..., None], state.ol_valid[at], state.ol_delivered[at]))
     cat = (wI, dI, cust)

@@ -665,3 +665,100 @@ def test_restore_run_onto_the_card_matches_the_cpu(cuda, tmp_path):
     (want, counts), (got, c) = ends
     assert all(torch.equal(x, y) for x, y in zip(got, want))
     assert c == counts
+
+
+FUSED_ROWS = {
+    "merge mix": ({}, dict(payments=True, reads=True, deliveries=True)),
+    "escrow, txn_megastep, mix": (
+        dict(stock_invariant="strict", admission="kernel", effects="fused"),
+        dict(payments=True, reads=True, deliveries=True, refresh_every=2)),
+    "escrow, escrow_admit": (
+        dict(stock_invariant="strict", admission="kernel", effects="scan"),
+        dict(refresh_abort_rate=0.3)),
+}
+
+
+@pytest.mark.parametrize("row", list(FUSED_ROWS))
+@pytest.mark.parametrize("R", [1, 4])
+def test_fused_executor_on_the_card_matches_dispatch(cuda, R, row):
+    """``run_loop(fused=True)``: each chunk one CUDA graph replay (a
+    shorter last chunk its own graph), bit-equal to the dispatch path on
+    the card and to the fused path on the CPU (state, escrow, counts); B1,
+    B2 and B3 counted through the replays, as many as the dispatch path
+    launches."""
+    from repro_torch.txn import run_loop
+    from repro_torch.txn.engine import Engine
+    from repro_torch.txn.executor import get_fused_executor
+
+    scale = tpcc.TPCCScale(n_warehouses=8, districts=4, customers=8,
+                           n_items=64, order_capacity=64, max_lines=15)
+    ekw, knobs = FUSED_ROWS[row]
+    kw = dict(batch_per_shard=16, n_batches=7, remote_frac=0.3,
+              merge_every=3, seed=5, item_skew=1.2, hot_items=4, **knobs)
+    hot = kw.pop("hot_items")
+    runs = {}
+    for dev, fused in (("cpu", True), (cuda, False), (cuda, True)):
+        e = Engine(scale, device=dev, n_shards=R,
+                   **(dict(ekw, hot_items=hot) if ekw else {}))
+        state = tpcc.init_state(scale, device=dev)
+        for k in (escrow_admit_cuda, txn_megastep_cuda, ramp_read_cuda):
+            k.launches = 0
+        s, esc, st = run_loop(e, state, fused=fused, audit=True, **kw)
+        launches = tuple(k.launches for k in (escrow_admit_cuda,
+                                              txn_megastep_cuda,
+                                              ramp_read_cuda))
+        runs[(str(dev), fused)] = (
+            [x.cpu() for x in (*s, *(esc or ()))],
+            (st.neworders, st.aborts, st.refreshes, st.payments,
+             st.reads_found, st.deliveries, st.anti_entropy_rounds),
+            launches)
+        if dev != "cpu" and fused:
+            graphs = get_fused_executor(
+                e, ring_rows=3, deliveries="deliveries" in knobs
+            ).last_run["graphs"]
+            assert sorted(graphs) == [1, 3]           # chunks 3, 3, 1
+            assert [g.replays for g in graphs.values()] == [1, 2]
+            assert all(g.pool_bytes >= 0 for g in graphs.values())
+    want, counts, _ = runs[("cpu", True)]
+    assert counts[0] > 0
+    _, _, dispatch = runs[(str(cuda), False)]
+    assert sum(dispatch) > 0
+    for key, (got, c, launches) in runs.items():
+        assert all(torch.equal(x, y) for x, y in zip(got, want)), key
+        assert c == counts, key
+        if key[0] != "cpu":
+            assert launches == dispatch, key
+
+
+def test_fused_capture_raises_instead_of_falling_back(cuda):
+    """A chunk body that reads back to the host cannot be captured: the
+    warm-up's host-sync check raises, and without the warm-up the capture
+    itself raises; neither runs the chunk eagerly (the live state is
+    untouched), and the next run on the card captures and runs."""
+    from repro_torch.txn.drivers import generate_mix_batches
+    from repro_torch.txn.engine import Engine
+    from repro_torch.txn.executor import FusedExecutor, stack_chunks
+
+    scale = tpcc.TPCCScale(n_warehouses=4, districts=4, customers=8,
+                           n_items=64, order_capacity=64, max_lines=15)
+    e = Engine(scale, device=cuda)
+    chunks = stack_chunks(*generate_mix_batches(
+        e, batch_per_shard=8, n_batches=4, seed=1), 2)
+    state = tpcc.init_state(scale, device=cuda)
+    before = [x.clone() for x in state]
+    honest = e.delivery_step
+
+    def reads_back(st):
+        int(st.no_valid.sum())          # a host read, inside the chunk
+        return honest(st)
+    e.delivery_step = reads_back
+    ex = FusedExecutor(e, ring_rows=2)
+    for warmup in (True, False):
+        with pytest.raises(RuntimeError):
+            ex.run(state, chunks, warmup=warmup)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(state, before))
+    e.delivery_step = honest
+    s, counters, _ = ex.run(state, chunks)
+    assert int(counters.neworders.sum()) == 4 * 8
+    assert sorted(ex.last_run["graphs"]) == [2]

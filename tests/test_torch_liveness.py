@@ -555,13 +555,14 @@ def _mismatches(ref, tag, port):
 def _port_run(R, monitor=None, fleet_alive=True):
     """The port's run of SMALL at R shards, strictly audited; the escrow
     laws only while some replica is alive (a dead fleet holds no
-    shares)."""
+    shares). By dispatch, as the reference's runs here (the fused path
+    gathers the ring in another order: tests/test_torch_executor.py)."""
     e = Engine(tt.TPCCScale(*SMALL["scale"]), stock_invariant="strict",
                device="cpu", n_shards=R)
     q0 = tt.init_state(e.scale, device="cpu").s_quantity
     s, esc, stats, ring = run_loop(
         e, tt.init_state(e.scale, device="cpu"), return_retry=True,
-        liveness=monitor, **SMALL["kw"])
+        fused=False, liveness=monitor, **SMALL["kw"])
     assert_audit(s, escrow=esc if fleet_alive else None, initial_stock=q0,
                  strict_stock=True)
     return s, esc, stats, ring
@@ -640,13 +641,40 @@ def test_run_loop_stop_beat_matches_reference(ref, R):
 
 
 def test_fused_and_obs_still_raise_naming_their_items():
+    """``obs`` still raises, naming its ROADMAP item. ``fused=True`` is
+    ported: the stop-beat liveness run on one shard through the fused
+    executor ends as the reference's fused run (state, escrow, ring,
+    counts, detections), and as the port's dispatch run."""
     e = Engine(tt.TPCCScale(*SMALL["scale"]), stock_invariant="strict",
                device="cpu")
     state = tt.init_state(e.scale, device="cpu")
-    for kw, item in ((dict(fused=True), "item 5"),
-                     (dict(obs=object()), "item 9, parts 4-5")):
-        with pytest.raises(NotImplementedError, match=item):
-            run_loop(e, state, batch_per_shard=2, n_batches=1, **kw)
+    with pytest.raises(NotImplementedError, match="item 9, parts 4-5"):
+        run_loop(e, state, batch_per_shard=2, n_batches=1, obs=object())
+    scale = jt.TPCCScale(*SMALL["scale"])
+    je = jengine(scale, stock_invariant="strict")
+    jmon = _monitor(JMonitor, 1, SMALL, pack_lease_stamp)
+    js, jesc, jst, jring = jrun_loop(
+        je, je.shard_state(jt.init_state(scale)), fused=True,
+        return_retry=True, liveness=jmon, **SMALL["kw"])
+    ref = {}
+    for name, tree in (("s", js), ("e", jesc), ("r", jring)):
+        for f, x in zip(tree._fields, jax.device_get(tree)):
+            ref[f"{name}/{f}"] = np.asarray(x)
+    runs = []
+    for fused in (True, False):
+        tmon = _monitor(LeaseMonitor, 1, SMALL, pack_lease_stamp)
+        ts, tesc, tst, tring = run_loop(
+            e, tt.init_state(e.scale, device="cpu"), fused=fused,
+            return_retry=True, liveness=tmon, **SMALL["kw"])
+        assert _mismatches(ref, "s", ts) == []
+        assert _mismatches(ref, "e", tesc) == []
+        assert _mismatches(ref, "r", tring) == []
+        assert [getattr(tst, k) for k in COUNTS] == \
+            [getattr(jst, k) for k in COUNTS]
+        assert tmon.detections == jmon.detections != []
+        runs.append(tst)
+    assert runs[0].anti_entropy_rounds == tmon.window == \
+        SMALL["kw"]["n_batches"] // SMALL["kw"]["merge_every"]
 
 
 @pytest.mark.parametrize("case", list(CHAOS))

@@ -207,14 +207,16 @@ def _port_engine(R, **kw):
 def _port_run(e, knobs, state=None, esc=None, **over):
     """The port's run of ``knobs`` (a RUNS entry) over SMALL's stream,
     from ``init_state`` or a run's ``state`` and ``esc``, audited against
-    the initial stock; returns (state, esc, stats, ring)."""
+    the initial stock; returns (state, esc, stats, ring). By dispatch, as
+    the reference's runs here (the fused path gathers the ring in another
+    order: tests/test_torch_executor.py)."""
     knobs = dict(knobs)
     if "alive" in knobs:
         knobs["alive"] = torch.tensor(knobs["alive"], dtype=torch.int32)
     if state is None:
         state = tt.init_state(e.scale, device="cpu")
     q0 = tt.init_state(e.scale, device="cpu").s_quantity
-    out = run_loop(e, state, esc, return_retry=True,
+    out = run_loop(e, state, esc, return_retry=True, fused=False,
                    **dict(SMALL["kw"], **over), **knobs)
     assert_audit(out[0], escrow=out[1], initial_stock=q0, strict_stock=True)
     return out
@@ -609,7 +611,8 @@ def test_the_ring_refuses_where_the_reference_does():
         te = Engine(tt.TPCCScale(**SMALL["scale"]), device="cpu",
                     **engine_kw)
         with pytest.raises(exc):
-            run_loop(te, tt.init_state(te.scale, device="cpu"), **kw)
+            run_loop(te, tt.init_state(te.scale, device="cpu"),
+                     fused=False, **kw)
 
 
 @pytest.mark.parametrize("R", [1, 2, 4])

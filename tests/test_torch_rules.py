@@ -134,10 +134,18 @@ def test_unported_paths_raise_not_implemented():
         n_batches=1)
     assert st2.committed + st2.aborted == 4
     eng = single_host_engine(scale, device="cpu")
-    for kw in (dict(fused=True), dict(obs=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            run_loop(eng, tpcc.init_state(scale, device="cpu"),
-                     batch_per_shard=2, n_batches=1, **kw)
+    # the fused executor is ported and is the default: it runs, ending
+    # where the dispatch path ends
+    runs = [run_loop(eng, tpcc.init_state(scale, device="cpu"),
+                     batch_per_shard=2, n_batches=3, merge_every=2, **kw)
+            for kw in ({}, dict(fused=True), dict(fused=False))]
+    for s, _, st in runs[1:]:
+        assert all(torch.equal(x, y) for x, y in zip(s, runs[0][0]))
+        assert (st.neworders, st.anti_entropy_rounds) == (
+            runs[0][2].neworders, runs[0][2].anti_entropy_rounds) == (6, 2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        run_loop(eng, tpcc.init_state(scale, device="cpu"),
+                 batch_per_shard=2, n_batches=1, obs=object())
     # liveness is ported: a lease monitor ticks once a drain window
     from repro_torch.runtime.liveness import LeaseMonitor
     mon = LeaseMonitor(2, source=lambda w: np.full(2, w + 1, np.int64))

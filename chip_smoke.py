@@ -4,7 +4,8 @@ alone, the five-transaction mix, the anti-entropy merge of divergent
 replica snapshots, LM serving (a dense and an RWKV-6 model), the dense
 escrow layout, the coordinated 2PC baseline, TPC-C as four replicas on
 one card, their cold-retry ring, crash recovery with self-detecting
-liveness, and the fused executor (a chunk of batches as one CUDA graph).
+liveness, the fused executor (a chunk of batches as one CUDA graph) and
+the observability plane with the TPC-C serving driver.
 
     python3 chip_smoke.py
 
@@ -151,7 +152,18 @@ six CUDA kernels of the port from ``src/repro_torch/kernels/csrc`` (one
      device time of one chunk replay and one drain (CUDA events in the run,
      and queued behind a spin) and the graph's pool bytes; then phase 17's
      ``retry_max=3`` run and phase 18 (b)'s stop-beat run through
-     ``fused=True``, held to the JAX package's counts.
+     ``fused=True``, held to the JAX package's counts;
+ 20. the observability plane (``run_loop(obs=ObsSession(...))``): phase
+     19's merge mix and escrow mix (txn_megastep) rows on phase 4's and
+     phase 16's deployments, three runs with metrics and three without in
+     turns, all bit-equal, B1-B3 launches equal, in the merge regime each
+     graph's captured launches and pool bytes equal; txn/s both ways and
+     ``metrics_on_vs_off``; one run with the ledger and device-synced
+     spans, its snapshot held to the JAX package's (``OBS_REFERENCE``:
+     latency counts and steps, counters, item demand, lattice digests,
+     ledger with no hot collective) and its span shares beside the
+     executor's CUDA-event chunk and drain times; then
+     ``python -m repro_torch.launch.tpcc_serve --batches 8`` on the card.
 
 The deployment is TPC-C at the specification's per-warehouse cardinalities
 (TPC-C standard specification, clause 4.3.3.1: 10 districts, 3000 customers
@@ -167,7 +179,7 @@ the launcher's seeded prompts of 2-512 tokens, 32 new tokens each and
 SmolLM's context of 2048 as the KV capacity.
 
 Launch counters are set to 0 just before each main path (phases 3-4, 7,
-8, 10, 11, 12, 14, 15 and each run of 16, 17, 18 and 19) and read just
+8, 10, 11, 12, 14, 15 and each run of 16, 17, 18, 19 and 20) and read just
 after. The second-to-last line of output is the kernels' JSON record;
 the last line is the device record. Any failure exits non-zero; so does
 a machine without a CUDA device.
@@ -176,6 +188,7 @@ a machine without a CUDA device.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2248,6 +2261,378 @@ def fused_executor(scale, smi):
     return launches
 
 
+# phase 20: the observability plane. Phase 19's merge mix and escrow mix
+# (txn_megastep) rows on phase 4's deployment and phase 16's, each run with
+# ObsSession(metrics=True, trace=True) and without a session, in turns
+OBS_RUNS = 3
+OBS_ROWS = ("merge mix", "escrow mix")
+# the JAX package's snapshots of these runs (``obs_digest``), printed by
+# ``python tests/test_torch_obs.py``
+OBS_REFERENCE = {
+    'merge mix/R1': {
+        "latency": {
+            'neworder': [8192, 2.0, 16.0],
+            'payment': [8192, 2.0, 2.0],
+            'order_status': [2048, 2.0, 2.0],
+            'stock_level': [2048, 2.0, 2.0],
+            'delivery': [8098, 2.0, 2.0],
+        },
+        "aborts": [0],
+        "cold_rejects": [0],
+        "item_access": [
+            81631,
+            [6, 6, 6, 6, 6, 6, 6, 6, 6, 6],
+            []],
+        "digest": {
+            'latency':
+                'cac15f31c9d1b3ee7aeed45a8be74aa4'
+                '2c6981966c9b8c33cafe604196d81505',
+            'item_access':
+                'bdac56555ceb4609b78f9ab001f81e6b'
+                '43f7aff4bab01d99dbd8983eb123758c',
+        },
+        "ledger": [4128, 0, 96.74418604651163, [
+            ['megastep (hot scan)', True, {}, 0, 1.0],
+            ['metrics record', True, {}, 0, 1.0],
+            ['metrics counter fold', True, {}, 0, 0.0],
+            ['order-status read', True, {}, 0, 0.0],
+            ['stock-level read', True, {}, 0, 0.0],
+            ['anti-entropy drain', False, {'all-gather': 4}, 399360, 1.0],
+        ]],
+    },
+    'escrow mix/R1': {
+        "latency": {
+            'neworder': [5610, 2.0, 16.0],
+            'payment': [8192, 2.0, 2.0],
+            'order_status': [2048, 2.0, 2.0],
+            'stock_level': [2048, 2.0, 2.0],
+            'delivery': [5598, 2.0, 2.0],
+        },
+        "aborts": [2582],
+        "cold_rejects": [0],
+        "item_access": [
+            82514,
+            [16213, 6987, 4185, 3122, 2270, 1839, 1614, 1426, 1156, 1075],
+            [0, 1, 2, 3, 4, 5, 6, 7, 8]],
+        "digest": {
+            'latency':
+                'bc835660d60646b3d4cc15e048895147'
+                '1451cbe9df6ce95de0cfe7fc4415e05b',
+            'item_access':
+                '6dfa8b977b338a002824cc2030728102'
+                '9f4773a70e5097a93e3cd56ff6fc18ed',
+        },
+        "ledger": [4128, 0, 158.75968992248062, [
+            ['megastep (hot scan)', True, {}, 0, 1.0],
+            ['metrics record', True, {}, 0, 1.0],
+            ['metrics counter fold', True, {}, 0, 0.0],
+            ['order-status read', True, {}, 0, 0.0],
+            ['stock-level read', True, {}, 0, 0.0],
+            ['strict drain', False, {'all-gather': 4}, 399360, 0.0],
+            ['drain + share refresh', False,
+             {'all-gather': 4, 'all-reduce': 1}, 655360, 1.0],
+        ]],
+    },
+    'merge mix/R4': {
+        "latency": {
+            'neworder': [8192, 2.0, 16.0],
+            'payment': [8192, 2.0, 2.0],
+            'order_status': [2048, 2.0, 2.0],
+            'stock_level': [2048, 2.0, 2.0],
+            'delivery': [8102, 2.0, 2.0],
+        },
+        "aborts": [0, 0, 0, 0],
+        "cold_rejects": [0, 0, 0, 0],
+        "item_access": [
+            81547,
+            [7, 7, 7, 6, 6, 6, 6, 6, 6, 6],
+            [18708, 40966, 93086]],
+        "digest": {
+            'latency':
+                '878216543bcfd7f738506c75e4380a13'
+                'b068675fdf54692ff753e0c7e380a2fa',
+            'item_access':
+                '689c88139573bb08737a97dd9e5d081f'
+                '6f67a4cc00c4f9a332eef0e7cdede8d1',
+        },
+        "ledger": [4224, 0, 94.54545454545455, [
+            ['megastep (hot scan)', True, {}, 0, 1.0],
+            ['metrics record', True, {}, 0, 1.0],
+            ['metrics counter fold', True, {}, 0, 0.0],
+            ['order-status read', True, {}, 0, 0.0],
+            ['stock-level read', True, {}, 0, 0.0],
+            ['anti-entropy drain', False, {'all-gather': 4}, 399360, 1.0],
+        ]],
+    },
+    'escrow mix/R4': {
+        "latency": {
+            'neworder': [4690, 2.0, 16.0],
+            'payment': [8192, 2.0, 2.0],
+            'order_status': [2048, 2.0, 2.0],
+            'stock_level': [2048, 2.0, 2.0],
+            'delivery': [4688, 2.0, 2.0],
+        },
+        "aborts": [747, 1002, 788, 965],
+        "cold_rejects": [0, 0, 0, 0],
+        "item_access": [
+            81512,
+            [15943, 7032, 4117, 3106, 2262, 1856, 1576, 1347, 1164, 1058],
+            [0, 1, 2, 3, 4, 5, 6, 7, 8]],
+        "digest": {
+            'latency':
+                '5abe080db2c84852b5b0dc2876fc0b26'
+                '606831ad437f20c0477ca49469b56225',
+            'item_access':
+                '4fa51192d4dce33f2ebb0fff74167846'
+                'cf7ef43e675e8bf7ae20e8e20212cad2',
+        },
+        "ledger": [4224, 0, 155.15151515151516, [
+            ['megastep (hot scan)', True, {}, 0, 1.0],
+            ['metrics record', True, {}, 0, 1.0],
+            ['metrics counter fold', True, {}, 0, 0.0],
+            ['order-status read', True, {}, 0, 0.0],
+            ['stock-level read', True, {}, 0, 0.0],
+            ['strict drain', False, {'all-gather': 4}, 399360, 0.0],
+            ['drain + share refresh', False,
+             {'all-gather': 4, 'all-reduce': 1}, 655360, 1.0],
+        ]],
+    },
+}
+
+
+def lattice_digest(metrics) -> dict:
+    """sha256 of the host copy's latency counts and item-access slots
+    (int32 bytes), as ``tests/test_torch_obs.py``'s reference script takes
+    them."""
+    import hashlib
+
+    import numpy as np
+    return {k: hashlib.sha256(np.asarray(x, np.int32).tobytes()).hexdigest()
+            for k, x in (("latency", metrics.latency.counts),
+                         ("item_access", metrics.item_access.slots))}
+
+
+def obs_digest(snap) -> dict:
+    """The fields of an observability snapshot that phase 20 holds to the
+    JAX package's: per-type latency count, p50 and p99 steps; the
+    per-replica abort and cold-reject counters; the item demand's total,
+    its top-10 counts and the items above the tenth count (which of the
+    items tied at the tenth count are listed is numpy's sort order, not
+    the port's); the lattice digests; the ledger's chunk size, hot
+    collectives, bytes a transaction and phases."""
+    top = snap["item_access"]["top_items"]
+    tenth = top[-1]["accesses"] if top else 0
+    led = snap["ledger"]
+    return {
+        "latency": {t: [r["count"], r["p50_steps"], r["p99_steps"]]
+                    for t, r in snap["latency"].items()},
+        "aborts": snap["counters"]["aborts_per_replica"],
+        "cold_rejects": snap["counters"]["cold_rejects_per_replica"],
+        "item_access": [snap["item_access"]["total_line_demand"],
+                        [x["accesses"] for x in top],
+                        sorted(x["i_id"] for x in top
+                               if x["accesses"] > tenth)],
+        "digest": snap["digest"],
+        "ledger": [led["txns_per_chunk"], led["hot_collectives"],
+                   led["bytes_per_txn"],
+                   [[q["phase"], q["hot"], q["collectives"],
+                     q["bytes_per_call"], q["calls_per_chunk"]]
+                    for q in led["phases"]]],
+    }
+
+
+def _exact(snap) -> dict:
+    """A snapshot's latency, counters and item access without the fields
+    derived from wall time."""
+    lat = {t: {k: r[k] for k in ("count", "p50_steps", "p99_steps")}
+           for t, r in snap["latency"].items()}
+    return dict(latency=lat, counters=snap["counters"],
+                item_access=snap["item_access"])
+
+
+def obs_row(scale, R, row, smi, tables):
+    """One row of phase 20 on R shards: ``OBS_RUNS`` runs with metrics and
+    as many without, in turns, from the same tables: every run bit-equal to
+    the first (state, escrow, counts), the metrics-on snapshots equal; B1,
+    B2 and B3 launches equal with metrics on and off, and in the merge
+    regime each graph's captured launches and pool bytes; txn/s both ways
+    and ``metrics_on_vs_off`` as the reference's ``obs_overhead`` row takes
+    it. Then one run with ``sync_spans=True`` and the ledger: its snapshot
+    is held to ``OBS_REFERENCE`` and cross-checked against the run's
+    stats, its span shares printed beside the executor's CUDA-event chunk
+    and drain times. Returns the row's launches by kernel (the ledger's
+    proof runs launch B2 and B3 too)."""
+    import statistics
+
+    from repro_torch.obs import ObsSession
+    from repro_torch.txn import run_loop, tpcc
+    from repro_torch.txn.engine import Engine
+    from repro_torch.txn.executor import KERNELS as kernels
+    from repro_torch.txn.executor import get_fused_executor
+
+    ekw, mix = FUSED_ROWS[row]
+    escrow = bool(ekw)
+    eng = Engine(scale, n_shards=R, **ekw)
+    ex = get_fused_executor(eng, ring_rows=MERGE_EVERY, deliveries=True)
+    base = tpcc.copy_tree(tables)
+    loop = dict(batch_per_shard=BATCH // R, n_batches=N_BATCHES,
+                remote_frac=REMOTE_FRAC, merge_every=MERGE_EVERY, seed=SEED,
+                **mix)
+    if escrow:
+        base.s_quantity.mul_(STOCK_MULTIPLIER)
+        loop.update(refresh_every=REFRESH_EVERY, item_skew=ITEM_SKEW)
+    total = dict.fromkeys(CHUNK_KERNELS, 0)
+    tput = {"on": [], "off": []}
+    launches = {"on": set(), "off": set()}
+    graphs = {"on": [], "off": []}
+    first = snap = None
+    for _ in range(OBS_RUNS):
+        for mode in ("on", "off"):
+            for k in kernels:
+                k.launches = 0
+            obs = ObsSession(metrics=True, trace=True) if mode == "on" \
+                else None
+            s, e, m = run_loop(eng, tpcc.copy_tree(base), obs=obs, **loop)
+            got = tuple(k.launches for k in kernels)
+            for name, n in zip(CHUNK_KERNELS, got):
+                total[name] += n
+            launches[mode].add(got)
+            tput[mode].append(m.throughput)
+            graphs[mode].append({T: (dict(g.launches), g.pool_bytes)
+                                 for T, g in ex.last_run["graphs"].items()})
+            if first is None:
+                first = (s, e, _mix_counts(m))
+            else:
+                bad = _same(s, first[0]) + (_same(e, first[1]) if escrow
+                                            else [])
+                if bad or _mix_counts(m) != first[2]:
+                    raise AssertionError(f"obs [{row}, R={R}]: metrics "
+                                         f"{mode} run != the first: {bad} "
+                                         f"{_mix_counts(m)} {first[2]}")
+            if obs is not None:
+                if snap is None:
+                    snap = obs.snapshot()
+                elif _exact(obs.snapshot()) != _exact(snap):
+                    raise AssertionError(f"obs [{row}, R={R}]: snapshots of "
+                                         f"two metrics-on runs differ")
+            del s, e
+    # B2 in the escrow row, B3 in both (the mix's reads), B1 in neither
+    if len(launches["on"]) != 1 or launches["on"] != launches["off"] \
+            or tuple(n > 0 for n in next(iter(launches["on"]))) != (
+                False, escrow, True):
+        raise AssertionError(f"obs [{row}, R={R}]: launches {launches}")
+    captured = {mode: [{T: g[0] for T, g in run.items()} for run in runs]
+                for mode, runs in graphs.items()}
+    if any(c != captured["off"][0] for runs in captured.values()
+           for c in runs):
+        raise AssertionError(f"obs [{row}, R={R}]: captured launches "
+                             f"{captured}")
+    if not escrow and any(run != graphs["off"][0] for runs in graphs.values()
+                          for run in runs):
+        raise AssertionError(f"obs [{row}, R={R}]: merge-regime graphs "
+                             f"differ with metrics on and off: {graphs}")
+    # (b) and (c): one run with the ledger and device-synced spans; its
+    # snapshot against the JAX package's and against the stats
+    for k in kernels:
+        k.launches = 0
+    obs = ObsSession(metrics=True, trace=True, sync_spans=True, ledger=True)
+    s, e, m = run_loop(eng, tpcc.copy_tree(base), obs=obs, **loop)
+    for name, k in zip(CHUNK_KERNELS, kernels):
+        total[name] += k.launches
+    bad = _same(s, first[0]) + (_same(e, first[1]) if escrow else [])
+    if bad or _mix_counts(m) != first[2] or \
+            _exact(obs.snapshot()) != _exact(snap):
+        raise AssertionError(f"obs [{row}, R={R}]: the synced run differs: "
+                             f"{bad}")
+    del s, e
+    snap = obs.snapshot()
+    key = f"{row}/R{R}"
+    got = obs_digest(dict(snap, digest=lattice_digest(obs.metrics)))
+    if got != OBS_REFERENCE[key]:
+        raise AssertionError(f"obs [{key}]: snapshot != the JAX package's: "
+                             f"{json.dumps(got)}")
+    lat = snap["latency"]
+    if (snap["ledger"]["hot_collectives"] != 0
+            or lat["neworder"]["count"] != m.neworders
+            or sum(snap["counters"]["aborts_per_replica"]) != m.aborts
+            or sum(snap["counters"]["cold_rejects_per_replica"])
+            != m.cold_rejects):
+        raise AssertionError(f"obs [{key}]: snapshot against stats: "
+                             f"{lat['neworder']} {snap['counters']} {m}")
+    spans = snap["spans"]["phases"]
+    best = {k: max(v) for k, v in tput.items()}
+    out = dict(
+        txn_s=tput, spread={k: [min(v), max(v)] for k, v in tput.items()},
+        metrics_on_vs_off=min(best["on"] / best["off"], 1.0),
+        measured_ratio=best["on"] / best["off"],
+        launches=dict(zip(CHUNK_KERNELS, next(iter(launches["on"])))),
+        pool_bytes={mode: runs[0][MERGE_EVERY][1]
+                    for mode, runs in graphs.items()},
+        synced_spans={p: dict(count=v["count"], total_ms=v["total_s"] * 1e3,
+                              share=v["share"]) for p, v in spans.items()},
+        chunk_ms=statistics.median(ex.last_run["chunk_ms"]),
+        drain_ms=statistics.median(ex.last_run["drain_ms"]),
+        step_wall_s=snap["step_wall_s"],
+        neworder_steps=[lat["neworder"]["p50_steps"],
+                        lat["neworder"]["p99_steps"]],
+        bytes_per_txn=snap["ledger"]["bytes_per_txn"])
+    print(f"obs [{row}, R={R}] ({smi}): {json.dumps(out)}; bit-equal with "
+          f"metrics on and off in {2 * OBS_RUNS} runs in turns; snapshot "
+          f"== the JAX package's, hot collectives 0")
+    return total
+
+
+def serving_driver():
+    """Phase 20 (d): ``python -m repro_torch.launch.tpcc_serve --batches
+    8`` on the card; its dashboard prints and its ``--json`` snapshot
+    parses with no hot collective."""
+    root = Path(__file__).resolve().parent
+    path = root / "build" / "tpcc_serve_snapshot.json"
+    path.parent.mkdir(exist_ok=True)
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.tpcc_serve", "--batches",
+         "8", "--json", str(path)], cwd=root, capture_output=True, text=True,
+        timeout=300, env=dict(os.environ, PYTHONPATH=str(root / "src")))
+    if proc.returncode != 0:
+        raise AssertionError(f"tpcc_serve: exit {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    text = proc.stdout
+    lo = text.index("-- observability plane")
+    hi = text.index("-- coordinated (2PC-style)")
+    print("tpcc_serve:\n" + text[lo:hi].rstrip())
+    snap = json.loads(path.read_text())
+    if snap["schema"] != "repro.obs/1" or \
+            snap["ledger"]["hot_collectives"] != 0:
+        raise AssertionError(f"tpcc_serve snapshot: {snap.get('ledger')}")
+    tail = [line for line in text.splitlines() if "speedup" in line]
+    print(f"tpcc_serve: snapshot parses, hot collectives 0; {tail}")
+
+
+def observability(scale, smi):
+    """Phase 20: ``obs_row`` for each of ``OBS_ROWS`` on phase 4's
+    deployment and phase 16's ``SHARDS`` shards, then the serving driver.
+    Returns each kernel's launches."""
+    import torch
+
+    from repro_torch.txn import init_state
+
+    launches = dict.fromkeys(CHUNK_KERNELS, 0)
+    tables = init_state(scale, seed=SEED)
+    for R in (1, SHARDS):
+        for row in OBS_ROWS:
+            t0 = time.perf_counter()
+            for k, n in obs_row(scale, R, row, smi, tables).items():
+                launches[k] += n
+            torch.cuda.empty_cache()
+            print(f"obs [{row}, R={R}]: {time.perf_counter() - t0:.1f} s")
+    del tables
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    serving_driver()
+    print(f"tpcc_serve: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2501,6 +2886,12 @@ def main() -> int:
     for k, n in fused_executor(scale, smi).items():
         launches[k] += n
     print(f"fused: phase 19 in {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 20: the observability plane, launch counts from 0 ------------
+    t0 = time.perf_counter()
+    for k, n in observability(scale, smi).items():
+        launches[k] += n
+    print(f"obs: phase 20 in {time.perf_counter() - t0:.1f} s")
     print(f"launches, every main path: {json.dumps(launches)}")
 
     for k in ("ramp_read", "lattice_merge", "flash_attention", "rwkv6_scan"):

@@ -33,7 +33,10 @@ entries in another lane order, and where it overflows other entries drop.
   window and its alive mask feeds that window's share refresh, so a
   replica that stops beating has its share reclaimed with no caller mask;
 * **audit** — ``audit=True`` runs the consistency oracle on the final
-  state.
+  state;
+* **observability** — ``obs`` (a ``repro_torch.obs.ObsSession``): tracer
+  spans, the metrics lattice (fused path only) and the coordination
+  ledger, read through ``obs.snapshot()`` after the run.
 
 Stat accumulators stay on the device; the host reads them once at the end
 (``legacy`` reads them every batch). ``run_closed_loop``,
@@ -44,6 +47,7 @@ wrappers.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 
@@ -216,8 +220,18 @@ def run_loop(engine, state: TPCCState, esc=None, *,
     into every refresh; ``liveness`` (a ``runtime.liveness.LeaseMonitor``)
     replaces it with a self-derived mask: the monitor ticks once per drain
     window of the escrow regime and its alive mask feeds that window's
-    refresh. ``obs`` belongs to a later slice and raises
-    ``NotImplementedError``.
+    refresh.
+
+    ``obs`` (a ``repro_torch.obs.ObsSession``) attaches the observability
+    plane: tracer spans around the fused path's megastep, outbox-drain and
+    share-refresh phases and around the audit; with metrics (fused path
+    only), the lattice fed after the timed loop from the chunks it ran,
+    which equals recording inline and launches nothing more in the loop;
+    then ``obs.finish`` (one device-to-host copy of the lattice, and the
+    coordination ledger when the session asks for one), so
+    ``obs.snapshot()`` holds stats, latency quantiles, counters, item
+    access, spans and ledger. Metrics are write-only: a metrics-on run
+    ends bit-equal to a metrics-off run.
 
     The cold-retry ring (escrow regime, sparse layout): ``retry_cap`` > 0
     gives each owner a ring of that many lanes, whose owner-rejected
@@ -235,11 +249,12 @@ def run_loop(engine, state: TPCCState, esc=None, *,
     ``stats.cold_rejects``, 0 in the dense layout, which has no cold
     tier).
     """
-    if obs is not None:
-        raise NotImplementedError("the observability plane is ROADMAP "
-                                  "Queue A item 9, parts 4-5")
     if legacy:
         fused = False
+    if obs is not None and obs.wants_metrics and not fused:
+        raise ValueError("on-device metrics require the fused executor "
+                         "(fused=True); dispatch/legacy modes support "
+                         "tracer spans only")
     escrow = engine.stock_regime is CoordClass.ESCROW
     if retry_cap > 0 and not escrow:
         raise ValueError("retry_cap > 0 requires the escrow regime "
@@ -271,18 +286,30 @@ def run_loop(engine, state: TPCCState, esc=None, *,
                  liveness=liveness)
     if fused:
         state, esc, stats, retry = _fused_loop(
-            engine, state, esc, no_b, pay_b, os_b, sl_b, **knobs)
+            engine, state, esc, no_b, pay_b, os_b, sl_b, obs=obs, **knobs)
     else:
         state, esc, stats, retry = _dispatch_loop(
             engine, state, esc, no_b, pay_b, os_b, sl_b,
             batch_per_shard=batch_per_shard, legacy=legacy, **knobs)
     if audit:
         from .audit import assert_audit
-        if escrow:
-            assert_audit(state, escrow=esc, initial_stock=q0,
-                         strict_stock=True)
-        else:
-            assert_audit(state)
+        with obs.span("audit") if obs is not None else \
+                contextlib.nullcontext():
+            if escrow:
+                assert_audit(state, escrow=esc, initial_stock=q0,
+                             strict_stock=True)
+            else:
+                assert_audit(state)
+    if obs is not None:
+        # one device-to-host copy of the lattice and the step -> seconds
+        # calibration; the ledger counts its phases here, outside every
+        # timed region
+        obs.finish(engine, stats, total_steps=n_batches,
+                   ledger_kw=dict(chunk_len=min(merge_every, n_batches),
+                                  batch_per_shard=batch_per_shard,
+                                  refresh_every=refresh_every,
+                                  payments=payments or reads, reads=reads,
+                                  metrics=obs.wants_metrics))
     if return_retry:
         return state, esc, stats, retry
     return state, esc, stats
@@ -291,7 +318,7 @@ def run_loop(engine, state: TPCCState, esc=None, *,
 def _fused_loop(engine, state, esc, no_b, pay_b, os_b, sl_b, *,
                 merge_every, refresh_every, refresh_abort_rate, deliveries,
                 escrow, alive, retry_cap=0, retry_max=0, retry=None,
-                retry_reserve=0, final_flush=True, liveness=None):
+                retry_reserve=0, final_flush=True, liveness=None, obs=None):
     """The fused path: the stream stacked into chunks of ``merge_every``
     batches on the device, then :class:`~repro_torch.txn.executor.
     FusedExecutor` (the engine's, built once)."""
@@ -303,13 +330,13 @@ def _fused_loop(engine, state, esc, no_b, pay_b, os_b, sl_b, *,
     if escrow:
         state, esc, counters, wall, refreshes, cold, retry = ex.run_escrow(
             state, esc, chunks, refresh_every=refresh_every,
-            refresh_abort_rate=refresh_abort_rate, retry=retry,
+            refresh_abort_rate=refresh_abort_rate, obs=obs, retry=retry,
             retry_max=retry_max, alive=alive, liveness=liveness,
             reserve=retry_reserve, final_flush=final_flush)
         return state, esc, counters_to_stats(
             counters, anti_entropy_rounds=len(chunks), wall_seconds=wall,
             refreshes=refreshes, cold_rejects=cold), retry
-    state, counters, wall = ex.run(state, chunks)
+    state, counters, wall = ex.run(state, chunks, obs=obs)
     return state, None, counters_to_stats(
         counters, anti_entropy_rounds=len(chunks), wall_seconds=wall), retry
 

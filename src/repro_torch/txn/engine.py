@@ -508,6 +508,33 @@ class Engine:
             descs.append(f"{name}: {stats.describe()}")
         return "; ".join(descs)
 
+    def count_read_collectives(self, read_per_shard: int = 2):
+        """The collectives of one Order-Status and one Stock-Level read of
+        ``read_per_shard`` queries a shard, on ``init_state``: (stats of
+        Order-Status, stats of Stock-Level)."""
+        state = tpcc.init_state(self.scale, device=self.device)
+        rng = np.random.default_rng(0)
+        out = []
+        for step, gen in ((self.order_status_step,
+                           tpcc.generate_order_status),
+                          (self.stock_level_step,
+                           tpcc.generate_stock_level)):
+            batch = tpcc.home_partitioned(gen, rng, self, read_per_shard)
+            with collectives.counted() as stats:
+                step(state, batch)
+            out.append(stats)
+        return tuple(out)
+
+    def coordination_ledger(self, **kw):
+        """The one-shot proofs as a budget reported with every run:
+        per-phase collective calls and bytes on the wire of this engine's
+        plan-selected fused closed loop (``repro_torch.obs.ledger.
+        build_ledger``'s keywords: chunk_len, batch_per_shard,
+        refresh_every, metrics, ...). Hot phases are checked at zero
+        collectives before the ledger is returned."""
+        from repro_torch.obs.ledger import build_ledger
+        return build_ledger(self, **kw)
+
     def count_anti_entropy_collectives(self, batch_per_shard: int = 8
                                        ) -> collectives.CollectiveStats:
         """The collectives of one anti-entropy drain of a batch's outbox

@@ -25,6 +25,12 @@ under ``shard_map``, so the host enters once a chunk. Here:
   updated in place for the whole run, the analogue of donation: the graph
   holds their addresses, and the refresh writes the new shares into the
   escrow's own tensors (``Engine.refresh_escrow``).
+* **observability** — ``run(obs=)`` and ``run_escrow(obs=)`` take a
+  ``repro_torch.obs.ObsSession``: tracer spans around each replay and
+  each drain, and the metrics lattice fed after the wall clock stops from
+  the chunks' own batches. The merge regime captures the metrics-off
+  graph; the escrow regime's also writes each step's commit mask into an
+  :class:`OkBuffer`, the reference's scan ``ys``.
 
 A graph captures no host read. Payment's ordered adds take their round
 count as a static argument (``MixChunk.pay_rounds``, read from the stream
@@ -46,6 +52,7 @@ R > 1 the rings hold the same entries an owner, in another lane order.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import time
@@ -60,6 +67,7 @@ from repro_torch.device import synchronize
 from repro_torch.kernels.escrow_admit import escrow_admit_cuda
 from repro_torch.kernels.ramp_read import ramp_read_cuda
 from repro_torch.kernels.txn_megastep import txn_megastep_cuda
+from repro_torch.obs import metrics as obsm
 
 from . import collectives, tpcc
 from .tpcc import (NewOrderBatch, OrderStatusBatch, PaymentBatch, StockDelta,
@@ -145,6 +153,21 @@ def stack_chunks(no_batches: Sequence[NewOrderBatch],
     return chunks
 
 
+class OkBuffer(NamedTuple):
+    """Where a metrics-on escrow run keeps each step's commit mask, the
+    reference's scan ``ys``: ``buf[c, i]`` is step ``i`` of the run's
+    chunk ``c``. Step ``i`` writes row ``cursor`` of ``buf[:, i]`` and the
+    chunk ends by advancing ``cursor``, a device tensor that every graph of
+    the run shares, so a replay writes its chunk's slot and the next one
+    the next."""
+
+    buf: torch.Tensor     # [n_chunks, ring_rows, R * B] bool
+    cursor: torch.Tensor  # [1] int64, the chunk being run
+
+    def copy(self) -> "OkBuffer":
+        return OkBuffer(self.buf.clone(), self.cursor.clone())
+
+
 def launch_counts() -> Counter:
     """Each chunk kernel's launch count (its wrapper's ``launches``)."""
     return Counter({k.__name__: k.launches for k in KERNELS})
@@ -156,7 +179,8 @@ class _Graph:
     the live buffers it was captured on (``live``: state, ring, counters,
     escrow), whose addresses it holds."""
 
-    def __init__(self, ex, T: int, chunk: MixChunk, rounds: int, live):
+    def __init__(self, ex, T: int, chunk: MixChunk, rounds: int, live,
+                 oks: OkBuffer | None = None):
         dev = ex.engine.device
         self.T = T
         self.live = live
@@ -176,7 +200,7 @@ class _Graph:
         gc.disable()
         try:
             with torch.cuda.graph(self.graph):
-                ex._chunk(*live, self.inputs)
+                ex._chunk(*live, self.inputs, oks)
         finally:
             if collecting:
                 gc.enable()
@@ -250,9 +274,12 @@ class FusedExecutor:
 
     # -- the chunk body -------------------------------------------------------
 
-    def _step(self, state, ring, cnt, esc, chunk: MixChunk, i: int) -> None:
+    def _step(self, state, ring, cnt, esc, chunk: MixChunk, i: int,
+              oks: OkBuffer | None = None) -> None:
         """Step ``i`` of ``chunk`` on every shard, in the dispatch path's
-        order; everything it changes is a fixed buffer, updated in place."""
+        order; everything it changes is a fixed buffer, updated in place.
+        With ``oks`` (a metrics-on escrow run) the step also writes its
+        commit mask there, the only op metrics add to a chunk."""
         eng = self.engine
         n = eng.n_shards
         per = lambda x: x.reshape(n, -1).sum(1).to(torch.int32)  # noqa: E731
@@ -263,6 +290,8 @@ class FusedExecutor:
             n_ok = per(ok)
             cnt.neworders.add_(n_ok)
             cnt.aborts.add_(B - n_ok)
+            if oks is not None:
+                oks.buf[:, i].index_copy_(0, oks.cursor, ok[None])
         else:
             _, delta, _ = eng.neworder_step(state, no_b)
             cnt.neworders.add_(B)
@@ -291,16 +320,20 @@ class FusedExecutor:
             _, delivered = eng.delivery_step(state)
             cnt.deliveries.add_(delivered)
 
-    def _chunk(self, state, ring, counters, esc, chunk: MixChunk) -> None:
+    def _chunk(self, state, ring, counters, esc, chunk: MixChunk,
+               oks: OkBuffer | None = None) -> None:
         for i in range(chunk.chunk_len):
-            self._step(state, ring, counters, esc, chunk, i)
+            self._step(state, ring, counters, esc, chunk, i, oks)
+        if oks is not None:
+            oks.cursor.add_(1)
 
     def _check_len(self, chunk: MixChunk) -> None:
         if chunk.chunk_len > self.ring_rows:
             raise ValueError(f"chunk of {chunk.chunk_len} steps exceeds the "
                              f"{self.ring_rows}-row outbox ring")
 
-    def _warm(self, state, ring, counters, esc, chunk: MixChunk) -> None:
+    def _warm(self, state, ring, counters, esc, chunk: MixChunk,
+              oks: OkBuffer | None = None) -> None:
         """One step of ``chunk`` on copies, before any capture: it builds
         the kernels, resolves the admission probe first, and on the card
         runs under the host-sync check, so a host read in the step raises
@@ -314,13 +347,14 @@ class FusedExecutor:
         copy = tpcc.copy_tree
         args = (copy(state), copy(ring), copy(counters),
                 None if esc is None else copy(esc))
+        oks = None if oks is None else oks.copy()
         one = MixChunk(*(None if b is None else type(b)(*(x[:1] for x in b))
                          for b in chunk[:4]), pay_rounds=chunk.pay_rounds)
         mode = torch.cuda.get_sync_debug_mode() if self._cuda else None
         if self._cuda:
             torch.cuda.set_sync_debug_mode("error")
         try:
-            self._chunk(*args, one)
+            self._chunk(*args, one, oks)
         finally:
             if self._cuda:
                 torch.cuda.set_sync_debug_mode(mode)
@@ -338,12 +372,13 @@ class FusedExecutor:
             raise RuntimeError("capture before the admission probe was "
                                "resolved: the warm-up resolves it")
 
-    def _prepare(self, state, ring, counters, esc, chunks, warmup):
+    def _prepare(self, state, ring, counters, esc, chunks, warmup,
+                 oks: OkBuffer | None = None):
         """The run's graphs, one a distinct chunk length (the card), after
         the warm-up; {} on the CPU."""
         self.last_run = {}
         if warmup:
-            self._warm(state, ring, counters, esc, chunks[0])
+            self._warm(state, ring, counters, esc, chunks[0], oks)
         if not self._cuda:
             return {}
         graphs = {}
@@ -354,13 +389,14 @@ class FusedExecutor:
             # the stream's deepest Payment of this length: extra rounds
             # are no-ops, so one graph serves every chunk
             rounds = max(c.pay_rounds for c in same)
-            graphs[T] = _Graph(self, T, same[0], rounds, live)
+            graphs[T] = _Graph(self, T, same[0], rounds, live, oks)
         self.last_run = dict(graphs=graphs, chunk_ms=[], drain_ms=[])
         return graphs
 
-    def _execute(self, graphs, state, ring, counters, esc, chunk):
+    def _execute(self, graphs, state, ring, counters, esc, chunk,
+                 oks: OkBuffer | None = None):
         if not self._cuda:
-            self._chunk(state, ring, counters, esc, chunk)
+            self._chunk(state, ring, counters, esc, chunk, oks)
             return
         g = graphs[chunk.chunk_len]
         g.load(chunk)
@@ -471,10 +507,19 @@ class FusedExecutor:
                 self.engine.refresh_escrow(state, esc, alive), rej)
 
     def run(self, state: TPCCState, chunks: Sequence[MixChunk], *,
-            warmup: bool = True) -> tuple[TPCCState, MixCounters, float]:
+            warmup: bool = True, obs=None
+            ) -> tuple[TPCCState, MixCounters, float]:
         """Drive every chunk, one drain after each, one host sync at the
         end. Returns (state, counters, wall_seconds); wall time excludes
-        the warm-up and the captures."""
+        the warm-up and the captures.
+
+        ``obs`` (a ``repro_torch.obs.ObsSession``) wraps each replay and
+        each drain in a tracer span and, when the session wants metrics,
+        feeds its lattice (``obs.device_metrics``): the captured chunk is
+        the metrics-off graph, and after the wall clock stops each chunk's
+        record and one counter fold run from the chunks' own batches; the
+        joins commute, so that equals recording inline, and the timed loop
+        launches nothing more."""
         if self._escrow:
             raise RuntimeError("escrow-regime executor: use run_escrow")
         for c in chunks:
@@ -483,18 +528,44 @@ class FusedExecutor:
         state = eng.shard_state(state)
         ring = self.init_ring(chunks[0].neworder.w.shape[1] // eng.n_shards)
         counters = self.init_counters()
+        metrics, span = self._obs(obs)
         if warmup:
             self._warm_drain(state, ring, None)
         graphs = self._prepare(state, ring, counters, None, chunks, warmup)
         synchronize(eng.device)
         t0 = time.perf_counter()
         for chunk in chunks:
-            self._execute(graphs, state, ring, counters, None, chunk)
-            self._timed("drain_ms", lambda: self.drain(state, ring))
+            with span("megastep"):
+                self._execute(graphs, state, ring, counters, None, chunk)
+                if obs is not None:
+                    obs.maybe_sync(counters)
+            with span("outbox-drain"):
+                self._timed("drain_ms", lambda: self.drain(state, ring))
+                if obs is not None:
+                    obs.maybe_sync(ring)
         synchronize(eng.device)
         wall = time.perf_counter() - t0
         self._finish_events()
+        if metrics is not None:
+            for chunk in chunks:
+                metrics = obsm.record_chunk(metrics, chunk.neworder, None)
+            obs.device_metrics = self._fold(metrics, counters)
         return state, counters, wall
+
+    def _obs(self, obs):
+        """The session's lattice (None when it wants no metrics) and its
+        span (a null one without a session)."""
+        if obs is None:
+            return None, lambda phase: contextlib.nullcontext()
+        return (obs.init_metrics(self.engine) if obs.wants_metrics
+                else None), obs.span
+
+    @staticmethod
+    def _fold(metrics, counters: MixCounters):
+        return obsm.fold_counters(metrics, counters.payments,
+                                  counters.order_statuses,
+                                  counters.stock_levels, counters.deliveries,
+                                  counters.aborts)
 
     def _warm_drain(self, state, ring, esc, retry_max=0, reserve=0) -> None:
         """The drains (and the refresh) once on copies, as the dispatch
@@ -528,9 +599,9 @@ class FusedExecutor:
     def run_escrow(self, state: TPCCState, esc, chunks: Sequence[MixChunk],
                    *, refresh_every: int = 1,
                    refresh_abort_rate: float | None = None,
-                   warmup: bool = True, retry=None, retry_max: int = 0,
-                   alive=None, reserve: int = 0, liveness=None,
-                   final_flush: bool = True):
+                   warmup: bool = True, obs=None, retry=None,
+                   retry_max: int = 0, alive=None, reserve: int = 0,
+                   liveness=None, final_flush: bool = True):
         """Escrow-regime drive: a chunk, then one strict drain; the shares
         refresh every ``refresh_every``-th drain, or adaptively when any
         replica's abort rate since the last refresh crosses
@@ -540,8 +611,12 @@ class FusedExecutor:
         and ``cold_rejects`` counts FINAL rejects; ``final_flush`` adds the
         run-end pending entries to it. ``alive`` ([n_shards] mask) feeds
         every refresh; ``liveness`` (a ``runtime.liveness.LeaseMonitor``)
-        derives it instead, ticked once a chunk. Returns (state, esc,
-        counters, wall_seconds, refreshes, cold_rejects, retry)."""
+        derives it instead, ticked once a chunk. ``obs`` as :meth:`run`
+        takes it; with metrics the captured chunk also writes each step's
+        commit mask into an :class:`OkBuffer` (the reference's scan ``ys``),
+        and each drain's cold rejects join the lattice after the loop.
+        Returns (state, esc, counters, wall_seconds, refreshes,
+        cold_rejects, retry)."""
         from .drivers import _adaptive_refresh_due
 
         if not self._escrow:
@@ -558,9 +633,16 @@ class FusedExecutor:
         state = eng.shard_state(state)
         ring = self.init_ring(bps)
         counters = self.init_counters()
+        metrics, span = self._obs(obs)
+        oks = None if metrics is None else OkBuffer(
+            torch.zeros((len(chunks), self.ring_rows,
+                         chunks[0].neworder.w.shape[1]), dtype=torch.bool,
+                        device=eng.device),
+            torch.zeros((1,), dtype=torch.int64, device=eng.device))
         if warmup:
             self._warm_drain(state, ring, esc, retry_max, reserve)
-        graphs = self._prepare(state, ring, counters, esc, chunks, warmup)
+        graphs = self._prepare(state, ring, counters, esc, chunks, warmup,
+                               oks)
 
         adaptive = refresh_abort_rate is not None
         aborts_at_refresh = np.zeros(eng.n_shards, np.int64)
@@ -568,10 +650,14 @@ class FusedExecutor:
         refreshes = 0
         rej_acc = torch.zeros((eng.n_shards,), dtype=torch.int32,
                               device=eng.device)
+        rejs = []
         synchronize(eng.device)
         t0 = time.perf_counter()
         for ci, chunk in enumerate(chunks):
-            self._execute(graphs, state, ring, counters, esc, chunk)
+            with span("megastep"):
+                self._execute(graphs, state, ring, counters, esc, chunk, oks)
+                if obs is not None:
+                    obs.maybe_sync(counters)
             if adaptive:
                 # the one host read adaptive control costs, per chunk
                 ab = counters.aborts.cpu().numpy().astype(np.int64)
@@ -587,13 +673,29 @@ class FusedExecutor:
             if liveness is not None:
                 # one monitor tick a drain window, feeding its refresh
                 alive = liveness.tick().astype(np.int32)
-            rej_acc.add_(self._timed("drain_ms", lambda: self._drain_window(
-                state, ring, esc, retry if use_retry else None, due, alive,
-                retry_max, reserve)))
+            with span("share-refresh" if due else "outbox-drain"):
+                rej = self._timed("drain_ms", lambda: self._drain_window(
+                    state, ring, esc, retry if use_retry else None, due,
+                    alive, retry_max, reserve))
+                if obs is not None:
+                    obs.maybe_sync(esc if due else ring)
+            rej_acc.add_(rej)
+            if metrics is not None:
+                rejs.append(rej)   # each drain's own tensor
             refreshes += int(due)
         synchronize(eng.device)
         wall = time.perf_counter() - t0
         self._finish_events()
+        if metrics is not None:
+            if int(oks.cursor) != len(chunks):
+                raise RuntimeError(f"the commit masks of {int(oks.cursor)} "
+                                   f"chunks were written, of {len(chunks)}")
+            for ci, chunk in enumerate(chunks):
+                metrics = obsm.record_chunk(
+                    metrics, chunk.neworder, oks.buf[ci, :chunk.chunk_len])
+            for rej in rejs:
+                metrics = obsm.add_cold_rejects(metrics, rej)
+            obs.device_metrics = self._fold(metrics, counters)
         cold = int(rej_acc.sum())
         if use_retry and final_flush:
             # entries still pending never got their last window: final
@@ -620,25 +722,79 @@ class FusedExecutor:
         return (state, self.init_ring(batch_per_shard), self.init_counters(),
                 esc, chunk)
 
-    def prove_megastep_coordination_free(self, chunk_len: int = 8,
-                                         batch_per_shard: int = 8,
-                                         read_per_shard: int = 2) -> str:
-        """Definition 5 on the fused hot path: a chunk of ``chunk_len``
-        full-mix steps (the escrow regime's strict admission included)
-        calls no collective, by ``txn/collectives.py``'s counts. Returns
-        the stats line."""
+    def count_megastep_collectives(self, chunk_len: int = 8,
+                                   batch_per_shard: int = 8,
+                                   read_per_shard: int = 2,
+                                   payments: bool = True, reads: bool = True,
+                                   metrics: bool = False):
+        """The collectives of one chunk of ``chunk_len`` steps of the mix
+        (Payment and the reads as ``payments`` and ``reads`` say), as a
+        metrics-on run's chunk when ``metrics`` (in the escrow regime it
+        writes the commit masks), on the proof inputs."""
         if chunk_len > self.ring_rows:
             raise ValueError(f"chunk of {chunk_len} steps exceeds the "
                              f"{self.ring_rows}-row outbox ring")
         *live, chunk = self._proof_inputs(chunk_len, batch_per_shard,
                                           read_per_shard)
+        chunk = chunk._replace(
+            payment=chunk.payment if payments else None,
+            order_status=chunk.order_status if reads else None,
+            stock_level=chunk.stock_level if reads else None)
+        oks = None
+        if metrics and self._escrow:
+            dev = self.engine.device
+            oks = OkBuffer(torch.zeros((1, self.ring_rows,
+                                        chunk.neworder.w.shape[1]),
+                                       dtype=torch.bool, device=dev),
+                           torch.zeros((1,), dtype=torch.int64, device=dev))
         with collectives.counted() as stats:
-            self._chunk(*live, chunk)
-        if stats.total_ops:
-            ctx = "escrow megastep" if self._escrow else "megastep"
-            raise AssertionError(f"coordination-free path contains "
-                                 f"collectives in fused TPC-C {ctx}: "
-                                 f"{stats.describe()}")
+            self._chunk(*live, chunk, oks)
+        return stats
+
+    def count_metrics_collectives(self, chunk_len: int = 8,
+                                  batch_per_shard: int = 8):
+        """The collectives of the obs plane's record of one chunk (with its
+        commit masks in the escrow regime) and of its counter fold, on the
+        proof inputs: (record stats, fold stats)."""
+        _, _, counters, _, chunk = self._proof_inputs(chunk_len,
+                                                      batch_per_shard, 1)
+        m = obsm.init_obs_metrics(self.engine)
+        ok = (torch.ones(chunk.neworder.w.shape, dtype=torch.bool,
+                         device=self.engine.device) if self._escrow
+              else None)
+        with collectives.counted() as record:
+            obsm.record_chunk(m, chunk.neworder, ok)
+        with collectives.counted() as fold:
+            self._fold(m, counters)
+        return record, fold
+
+    def prove_megastep_coordination_free(self, chunk_len: int = 8,
+                                         batch_per_shard: int = 8,
+                                         read_per_shard: int = 2,
+                                         metrics: bool = False) -> str:
+        """Definition 5 on the fused hot path: a chunk of ``chunk_len``
+        full-mix steps (the escrow regime's strict admission included)
+        calls no collective, by ``txn/collectives.py``'s counts.
+        ``metrics=True`` proves the same for all a metrics-on run does a
+        chunk: its chunk and the obs plane's record and counter fold.
+        Returns the chunk's stats line."""
+        ctx = "fused TPC-C escrow megastep" if self._escrow \
+            else "fused TPC-C megastep"
+        if metrics:
+            ctx += " (metrics-on)"
+        stats = self.count_megastep_collectives(
+            chunk_len, batch_per_shard, read_per_shard, metrics=metrics)
+        checks = [(ctx, stats)]
+        if metrics:
+            record, fold = self.count_metrics_collectives(chunk_len,
+                                                          batch_per_shard)
+            checks += [(ctx + " record program", record),
+                       (ctx + " counter-fold program", fold)]
+        for what, st in checks:
+            if st.total_ops:
+                raise AssertionError(f"coordination-free path contains "
+                                     f"collectives in {what}: "
+                                     f"{st.describe()}")
         return stats.describe()
 
     def _count_drain(self, drain, batch_per_shard: int):

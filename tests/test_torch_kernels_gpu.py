@@ -762,3 +762,115 @@ def test_fused_capture_raises_instead_of_falling_back(cuda):
     s, counters, _ = ex.run(state, chunks)
     assert int(counters.neworders.sum()) == 4 * 8
     assert sorted(ex.last_run["graphs"]) == [2]
+
+
+OBS_ROWS = {k: FUSED_ROWS[k] for k in ("merge mix",
+                                       "escrow, txn_megastep, mix")}
+
+
+def _exact_snapshot(snap):
+    """A snapshot without the fields derived from wall time."""
+    out = {k: snap[k] for k in ("latency", "counters", "item_access")}
+    for row in out["latency"].values():
+        row.pop("p50_s")
+        row.pop("p99_s")
+    stats = dict(snap["stats"])
+    stats.pop("wall_seconds")
+    stats.pop("throughput")
+    out["stats"] = stats
+    out["spans"] = {p: v["count"] for p, v in snap["spans"]["phases"].items()}
+    return out
+
+
+@pytest.mark.parametrize("row", list(OBS_ROWS))
+@pytest.mark.parametrize("R", [1, 4])
+def test_metrics_on_replays_bit_equal_to_metrics_off(cuda, R, row):
+    """``run_loop(obs=ObsSession(metrics=True))`` on the card ends bit-equal
+    to ``obs=None`` (state, escrow, counts, B1-B3 launches); in the merge
+    regime each graph captured the same launches into the same pool bytes;
+    its snapshot equals the CPU's metrics-on snapshot in every exact
+    field."""
+    from repro_torch.obs import ObsSession
+    from repro_torch.txn import run_loop
+    from repro_torch.txn.engine import Engine
+    from repro_torch.txn.executor import get_fused_executor
+
+    scale = tpcc.TPCCScale(n_warehouses=8, districts=4, customers=8,
+                           n_items=64, order_capacity=64, max_lines=15)
+    ekw, knobs = OBS_ROWS[row]
+    kw = dict(batch_per_shard=16, n_batches=7, remote_frac=0.3,
+              merge_every=3, seed=5, item_skew=1.2, **knobs)
+    runs = {}
+    for dev, metrics in (("cpu", True), (cuda, False), (cuda, True)):
+        e = Engine(scale, device=dev, n_shards=R,
+                   **(dict(ekw, hot_items=4) if ekw else {}))
+        for k in (escrow_admit_cuda, txn_megastep_cuda, ramp_read_cuda):
+            k.launches = 0
+        obs = ObsSession(metrics=True, trace=True) if metrics else None
+        s, esc, st = run_loop(e, tpcc.init_state(scale, device=dev), obs=obs,
+                              **kw)
+        launches = tuple(k.launches for k in (escrow_admit_cuda,
+                                              txn_megastep_cuda,
+                                              ramp_read_cuda))
+        snap = None if obs is None else _exact_snapshot(obs.snapshot())
+        st.wall_seconds = 0.0
+        graphs = {}
+        if dev != "cpu":
+            graphs = {T: (dict(g.launches), g.pool_bytes, g.replays)
+                      for T, g in get_fused_executor(
+                          e, ring_rows=3, deliveries=True
+                      ).last_run["graphs"].items()}
+        runs[(str(dev), metrics)] = (
+            [x.cpu() for x in (*s, *(esc or ()))], st, launches, graphs,
+            snap)
+    want = runs[("cpu", True)]
+    off = runs[(str(cuda), False)]
+    on = runs[(str(cuda), True)]
+    for got in (off, on):
+        assert all(torch.equal(x, y) for x, y in zip(got[0], want[0]))
+        assert got[1] == want[1]
+    assert on[2] == off[2] and sum(on[2]) > 0
+    assert on[4] == want[4]
+    assert sorted(on[3]) == sorted(off[3]) == [1, 3]
+    if not ekw:   # the merge regime's chunk is the metrics-off graph
+        assert on[3] == off[3]
+    else:         # the escrow regime's adds the commit-mask write only
+        assert {T: g[0] for T, g in on[3].items()} == \
+            {T: g[0] for T, g in off[3].items()}
+
+
+def test_item_access_scatter_on_the_card_matches_the_cpu(cuda):
+    """Full width: 8 steps x 256 New-Orders x 15 lines against 100,000
+    items takes the scatter branch (``index_add_`` on int32); on the card
+    it equals the plain sum on the CPU."""
+    from repro_torch.obs import metrics as obsm
+
+    T, B, L, n_items, R = 8, 256, 15, 100_000, 4
+    rng = np.random.default_rng(0)
+    fields = dict(i_id=rng.integers(0, n_items, (T, B, L), dtype=np.int32),
+                  n_lines=rng.integers(5, L + 1, (T, B), dtype=np.int32),
+                  supply_w=rng.integers(0, 2, (T, B, L), dtype=np.int32),
+                  w=np.zeros((T, B), np.int32))
+    assert T * (B // R) * L * n_items > obsm._ONE_HOT_MAX_ELEMS
+    ok = rng.integers(0, 2, (T, B)).astype(bool)
+
+    class _NO:
+        pass
+
+    out = {}
+    for dev in ("cpu", cuda):
+        no = _NO()
+        for k, v in fields.items():
+            setattr(no, k, torch.from_numpy(v).to(dev))
+        m = obsm.record_chunk(obsm.make_obs_metrics(R, n_items, device=dev),
+                              no, torch.from_numpy(ok).to(dev))
+        out[str(dev)] = obsm.metrics_to_host(m)
+    valid = np.arange(L)[None, None] < fields["n_lines"][..., None]
+    plain = np.zeros((R, n_items), np.int64)
+    for r in range(R):
+        blk = slice(r * B // R, (r + 1) * B // R)
+        np.add.at(plain[r], fields["i_id"][:, blk][valid[:, blk]], 1)
+    for host in out.values():
+        assert np.array_equal(host.item_access.slots.numpy(), plain)
+    assert torch.equal(out["cpu"].latency.counts,
+                       out[str(cuda)].latency.counts)

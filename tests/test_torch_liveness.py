@@ -641,21 +641,25 @@ def test_run_loop_stop_beat_matches_reference(ref, R):
 
 
 def test_fused_and_obs_still_raise_naming_their_items():
-    """``obs`` still raises, naming its ROADMAP item. ``fused=True`` is
-    ported: the stop-beat liveness run on one shard through the fused
-    executor ends as the reference's fused run (state, escrow, ring,
-    counts, detections), and as the port's dispatch run."""
+    """``fused=True`` and ``obs`` are ported: the stop-beat liveness run on
+    one shard through the fused executor, with an observability session
+    fed the monitor's detection lags (the liveness hook), ends as the
+    reference's fused run (state, escrow, ring, counts, detections, the
+    session's detection-latency summary and metrics), and as the port's
+    dispatch run (spans only: metrics need the fused path)."""
+    from repro.obs import ObsSession as JSession
+    from repro_torch.obs import ObsSession
+
     e = Engine(tt.TPCCScale(*SMALL["scale"]), stock_invariant="strict",
                device="cpu")
-    state = tt.init_state(e.scale, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9, parts 4-5"):
-        run_loop(e, state, batch_per_shard=2, n_batches=1, obs=object())
     scale = jt.TPCCScale(*SMALL["scale"])
     je = jengine(scale, stock_invariant="strict")
     jmon = _monitor(JMonitor, 1, SMALL, pack_lease_stamp)
+    jobs = JSession(metrics=True, trace=False)
     js, jesc, jst, jring = jrun_loop(
         je, je.shard_state(jt.init_state(scale)), fused=True,
-        return_retry=True, liveness=jmon, **SMALL["kw"])
+        return_retry=True, liveness=jmon, obs=jobs, **SMALL["kw"])
+    jobs.record_heartbeat_lags(jmon.detection_lags())
     ref = {}
     for name, tree in (("s", js), ("e", jesc), ("r", jring)):
         for f, x in zip(tree._fields, jax.device_get(tree)):
@@ -663,9 +667,20 @@ def test_fused_and_obs_still_raise_naming_their_items():
     runs = []
     for fused in (True, False):
         tmon = _monitor(LeaseMonitor, 1, SMALL, pack_lease_stamp)
+        obs = ObsSession(metrics=fused, trace=False)
         ts, tesc, tst, tring = run_loop(
             e, tt.init_state(e.scale, device="cpu"), fused=fused,
-            return_retry=True, liveness=tmon, **SMALL["kw"])
+            return_retry=True, liveness=tmon, obs=obs, **SMALL["kw"])
+        obs.record_heartbeat_lags(tmon.detection_lags())
+        assert obs.detection_latency_summary() == \
+            jobs.detection_latency_summary()
+        if fused:
+            steps = lambda lat: {t: (r["count"], r["p50_steps"],  # noqa
+                                     r["p99_steps"]) for t, r in lat.items()}
+            assert steps(obs.latency_summary()) == \
+                steps(jobs.latency_summary())
+            assert obs.snapshot()["counters"] == \
+                jobs.snapshot()["counters"]
         assert _mismatches(ref, "s", ts) == []
         assert _mismatches(ref, "e", tesc) == []
         assert _mismatches(ref, "r", tring) == []

@@ -46,6 +46,10 @@ def _imported_roots(path: Path) -> set[str]:
 def test_port_imports_neither_jax_nor_reference():
     files = _port_files()
     assert len(files) > 10
+    # the observability plane and the serving driver are among them
+    assert {PORT / "obs" / f for f in ("__init__.py", "metrics.py",
+                                      "ledger.py", "trace.py")} | {
+        PORT / "launch" / "tpcc_serve.py"} <= set(files)
     offenders = {str(p.relative_to(ROOT)): sorted(
         _imported_roots(p) & {"jax", "jaxlib", "repro"}) for p in files}
     assert {k: v for k, v in offenders.items() if v} == {}
@@ -55,7 +59,9 @@ def test_importing_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.txn, repro_torch.kernels,"
             " repro_torch.models, repro_torch.configs,"
             " repro_torch.runtime.serve, repro_torch.launch.serve,"
-            " repro_torch.runtime, repro_torch.ckpt, repro_torch.txn.recovery;"
+            " repro_torch.runtime, repro_torch.ckpt, repro_torch.txn.recovery,"
+            " repro_torch.obs, repro_torch.obs.ledger,"
+            " repro_torch.launch.tpcc_serve;"
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
             "or m.startswith(('jax.', 'repro.'))];"
             "assert not bad, bad")
@@ -84,6 +90,13 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch.runtime.failures import EscrowPodSimulator
     with pytest.raises(RuntimeError, match="no CUDA device"):
         EscrowPodSimulator(scale, 2)
+    from repro_torch.launch import tpcc_serve
+    for argv in ([], ["--chaos"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tpcc_serve.main(argv)
+    from repro_torch.obs import metrics as obsm
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        obsm.make_obs_metrics(1, 4)
     # asked for explicitly, the CPU is fine
     eng = single_host_engine(scale, device="cpu")
     assert eng.device == torch.device("cpu")
@@ -143,9 +156,15 @@ def test_unported_paths_raise_not_implemented():
         assert all(torch.equal(x, y) for x, y in zip(s, runs[0][0]))
         assert (st.neworders, st.anti_entropy_rounds) == (
             runs[0][2].neworders, runs[0][2].anti_entropy_rounds) == (6, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_loop(eng, tpcc.init_state(scale, device="cpu"),
-                 batch_per_shard=2, n_batches=1, obs=object())
+    # the observability plane is ported: the session's snapshot holds the
+    # run's metrics and ledger
+    from repro_torch.obs import ObsSession
+    obs = ObsSession(metrics=True, ledger=True)
+    run_loop(eng, tpcc.init_state(scale, device="cpu"), batch_per_shard=2,
+             n_batches=2, merge_every=2, obs=obs)
+    snap = obs.snapshot()
+    assert snap["latency"]["neworder"]["count"] == 4
+    assert snap["ledger"]["hot_collectives"] == 0
     # liveness is ported: a lease monitor ticks once a drain window
     from repro_torch.runtime.liveness import LeaseMonitor
     mon = LeaseMonitor(2, source=lambda w: np.full(2, w + 1, np.int64))

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one CUDA card: TPC-C New-Order
 alone, the five-transaction mix, the anti-entropy merge of divergent
-replica snapshots, LM serving (a dense and an RWKV-6 model), the dense
+replica snapshots, LM serving (all six model families), the dense
 escrow layout, the coordinated 2PC baseline, TPC-C as four replicas on
 one card, their cold-retry ring, crash recovery with self-detecting
 liveness, the fused executor (a chunk of batches as one CUDA graph) and
@@ -69,7 +69,10 @@ six CUDA kernels of the port from ``src/repro_torch/kernels/csrc`` (one
  13. both reduced configurations (float32) through ``Server`` with the
      kernels on the card and with the plain path on the CPU, on the same
      weights and seeded prompts: the generated tokens equal, the first
-     decode step's logits within 1e-4 (TF32 off);
+     decode step's logits within 1e-4 (TF32 off); then the same for the
+     four families of phase 21, reduced: the tokens equal, every decode
+     step's logits within 1e-4, B5 (float32 route) once an encoder layer
+     a batch for whisper's encoder and never for the others;
  14. dense escrow (``escrow_layout="dense"``: a share of every one of the
      6.4 M cells) on phase 4's stream, through the megastep kernel and
      through the escrow_admit kernel, bit-equal to each other and to the
@@ -163,7 +166,20 @@ six CUDA kernels of the port from ``src/repro_torch/kernels/csrc`` (one
      latency counts and steps, counters, item demand, lattice digests,
      ledger with no hot collective) and its span shares beside the
      executor's CUDA-event chunk and drain times; then
-     ``python -m repro_torch.launch.tpcc_serve --batches 8`` on the card.
+     ``python -m repro_torch.launch.tpcc_serve --batches 8`` on the card;
+ 21. the moe, hybrid, vlm and audio families: ``repro_torch.launch.serve``
+     serves 16 requests of olmoe-1b-7b, hymba-1.5b, llama-3.2-vision-11b
+     and whisper-tiny at full width and depth (bf16, random weights, one
+     model on the card at a time), prompts of 2-128 tokens teacher-forced
+     one decode step a token as the reference does, 32 new tokens; B5's
+     launches: 8 for whisper (its encoder, 4 layers x 2 batches, on the
+     tensor-core route), none for the others; then olmoe's
+     ``registry.make_prefill_fn`` on batch 1's prefix (16 launches); B5
+     against its plain version and timed, beside SDPA and its bound, on
+     the two problems these paths give it: (a) olmoe's prefill, hd 128,
+     causal, (b) whisper's encoder, S 1500, non-causal; the hd-128
+     tensor-core kernel's registers and spills; per model its parameters,
+     ``max_memory_allocated``, tok/s, prefill and decode ms.
 
 The deployment is TPC-C at the specification's per-warehouse cardinalities
 (TPC-C standard specification, clause 4.3.3.1: 10 districts, 3000 customers
@@ -176,11 +192,14 @@ Stock-Level queries (``read_frac`` 0.25) and one Delivery per district.
 The serving deployments are smollm-360m (HF HuggingFaceTB/SmolLM-360M)
 and rwkv6-3b (arXiv:2404.05892) at their published widths and depths, with
 the launcher's seeded prompts of 2-512 tokens, 32 new tokens each and
-SmolLM's context of 2048 as the KV capacity.
+SmolLM's context of 2048 as the KV capacity; phase 21's are olmoe-1b-7b
+(arXiv:2409.02060), hymba-1.5b (arXiv:2411.13676), llama-3.2-vision-11b
+(HF meta-llama/Llama-3.2-11B-Vision) and whisper-tiny (arXiv:2212.04356,
+its text context of 448 as the KV capacity).
 
 Launch counters are set to 0 just before each main path (phases 3-4, 7,
-8, 10, 11, 12, 14, 15 and each run of 16, 17, 18, 19 and 20) and read just
-after. The second-to-last line of output is the kernels' JSON record;
+8, 10, 11, 12, 14, 15, each run of 16, 17, 18, 19 and 20, and each model
+and the prefill of 21) and read just after. The second-to-last line of output is the kernels' JSON record;
 the last line is the device record. Any failure exits non-zero; so does
 a machine without a CUDA device.
 """
@@ -843,44 +862,60 @@ def attention_problems(out):
     return probs
 
 
-def flash_check_and_time(out):
-    """Phase 11's kernel row: B5 against its plain version on every problem,
-    then kernel, plain version and SDPA timed on the main problem, and its
-    bound."""
-    import torch
+def attention_row(q, k, v, causal):
+    """B5 on one problem: its time, the plain version's and SDPA's (the
+    library call for the same function), by CUDA events behind a spin,
+    and its bound."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
 
-    err = 0.0
-    problems = attention_problems(out)
-    for tag, q, k, v, causal in problems:
-        got = flash_attention_cuda(q, k, v, causal=causal)
-        want = ref.flash_attention_plain(q, k, v, causal=causal)
-        e = _max_abs_err((got.float(),), (want.float(),))
-        ok = _within(got, want, ATTN_TOL[str(q.dtype)[6:]])
-        print(f"parity [flash_attention, {tag}] max_abs_err={e} (max "
-              f"|plain| {float(want.float().abs().max()):.4g}) within "
-              f"tolerance {ok}")
-        if not ok:
-            raise AssertionError(f"flash_attention disagrees with plain: "
-                                 f"{tag}")
-        err = max(err, e)
-    _, q, k, v, _ = problems[0]
     B, S, H, hd = q.shape
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     nbytes = _nbytes(q, k, v, q)
-    ops = 4 * hd * B * H * S * (S + 1) // 2       # QK^T and PV, j <= i
+    # QK^T and PV: j <= i under causal masking, every j otherwise
+    ops = 4 * hd * B * H * (S * (S + 1) // 2 if causal else S * S)
     bound, by = _bound(nbytes, ops, str(q.dtype)[6:])
-    row = dict(max_abs_err=err, shape=[B, S, H, k.shape[2], hd],
-               bytes=nbytes, ops=ops,
-               ms=_time_ms(lambda: flash_attention_cuda(q, k, v), 50),
-               plain_ms=_time_ms(lambda: ref.flash_attention_plain(q, k, v),
-                                 10),
-               library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
-                   qt, kt, vt, is_causal=True, enable_gqa=True), 50),
-               bound_ms=bound, bound_by=by)
+    return dict(
+        shape=[B, S, H, k.shape[2], hd], causal=causal, bytes=nbytes,
+        ops=ops,
+        ms=_time_ms(lambda: flash_attention_cuda(q, k, v, causal=causal),
+                    50),
+        plain_ms=_time_ms(lambda: ref.flash_attention_plain(
+            q, k, v, causal=causal), 10),
+        library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True), 50),
+        bound_ms=bound, bound_by=by)
+
+
+def attention_parity(tag, q, k, v, causal) -> float:
+    """B5 against its plain version on one problem, at the reference's
+    tolerance for the dtype; returns the max abs error."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    got = flash_attention_cuda(q, k, v, causal=causal)
+    want = ref.flash_attention_plain(q, k, v, causal=causal)
+    e = _max_abs_err((got.float(),), (want.float(),))
+    ok = _within(got, want, ATTN_TOL[str(q.dtype)[6:]])
+    print(f"parity [flash_attention, {tag}] max_abs_err={e} (max "
+          f"|plain| {float(want.float().abs().max()):.4g}) within "
+          f"tolerance {ok}")
+    if not ok:
+        raise AssertionError(f"flash_attention disagrees with plain: {tag}")
+    return e
+
+
+def flash_check_and_time(out):
+    """Phase 11's kernel row: B5 against its plain version on every problem,
+    then kernel, plain version and SDPA timed on the main problem, and its
+    bound."""
+    problems = attention_problems(out)
+    err = max(attention_parity(*p) for p in problems)
+    _, q, k, v, _ = problems[0]
+    row = dict(max_abs_err=err, **attention_row(q, k, v, True))
+    del row["causal"]
     print(f"timing [flash_attention, main problem] {json.dumps(row)}")
     return row
 
@@ -1034,6 +1069,65 @@ def card_against_cpu():
         # the card's two served batches, one launch a layer each
         if gens[0] != gens[1] or not err <= 1e-4 or \
                 launches != 2 * cfg.n_layers:
+            raise AssertionError(f"{arch}: the card's serving differs from "
+                                 f"the CPU's")
+
+
+FAMILIES = ("olmoe-1b-7b", "hymba-1.5b", "llama-3.2-vision-11b",
+            "whisper-tiny")   # served by teacher-forced decode steps
+
+
+def _recording(decode, logs):
+    """``decode`` that also keeps each step's logits, on the host."""
+    def step(params, cache, token):
+        lg, cache = decode(params, cache, token)
+        logs.append(lg.cpu())
+        return lg, cache
+    return step
+
+
+def families_card_against_cpu():
+    """Phase 13 (b): the moe, hybrid, vlm and audio families, reduced
+    (float32), through ``Server`` on the card and on the CPU, on the same
+    weights and prompts: the same tokens, every decode step's logits
+    within 1e-4, and B5 launched (float32 route) once an encoder layer a
+    batch for the audio family's encoder, never for the others."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.runtime.serve import ServeConfig, Server
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for arch in FAMILIES:
+        cfg = registry.get_config(arch).reduced()
+        on_cpu = registry.init_params(cfg, seed=SEED, device="cpu")
+        on_card = copy.deepcopy(on_cpu).cuda()
+        rng = np.random.default_rng(SEED)
+        prompts = [rng.integers(0, cfg.vocab, rng.integers(2, 41)).astype(
+            np.int32) for _ in range(8)]
+        gens, logs, before = [], [], flash_attention_cuda.launches
+        for model, dev in ((on_card, "cuda"), (on_cpu, "cpu")):
+            srv = Server(cfg, model, ServeConfig(max_new_tokens=8,
+                                                 capacity=64), device=dev)
+            logs.append([])
+            srv._decode = _recording(srv._decode, logs[-1])
+            reqs = [srv.admit(p) for p in prompts]
+            for i in range(0, 8, 4):
+                srv.serve_batch(reqs[i:i + 4])
+            gens.append([r.generated for r in reqs])
+        launches = flash_attention_cuda.launches - before
+        err = max(float((a - b).abs().max()) for a, b in zip(*logs))
+        want = 2 * cfg.enc_layers if cfg.family == "audio" else 0
+        print(f"small run ({arch}, reduced, float32): card == CPU tokens: "
+              f"{gens[0] == gens[1]}; {len(logs[0])} decode steps' logits "
+              f"max_abs_err={err}; flash_attention launches={launches}")
+        if gens[0] != gens[1] or len(logs[0]) != len(logs[1]) or \
+                not err <= 1e-4 or launches != want:
             raise AssertionError(f"{arch}: the card's serving differs from "
                                  f"the CPU's")
 
@@ -2633,6 +2727,161 @@ def observability(scale, smi):
     return launches
 
 
+# phase 21: the moe, hybrid, vlm and audio families served at their
+# published widths and depths through the launcher, as phases 11-12 serve
+# theirs. These families teacher-force the prompt prefix one eager decode
+# step a token, as the reference Server does, so prompts stay within 128
+# tokens. One model is on the card at a time.
+FAMILY_FLAGS = ["--requests", str(SERVE_REQUESTS), "--batch", str(SERVE_BATCH),
+                "--prompt-len", "128", "--new-tokens", str(NEW_TOKENS)]
+FAMILY_CAPACITY = {"whisper-tiny": 448}   # its text context; others 2048
+TC128 = "flash_attention_tc_kernelILi128E"   # the hd-128 tensor-core kernel
+
+
+def ptxas_lines(log: str, entry: str) -> list[str]:
+    """The ``-Xptxas -v`` lines (registers, stack, spills) of the entry
+    functions whose mangled name holds ``entry``."""
+    lines, mine = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line or \
+                "Function properties for" in line:
+            mine = entry in line
+        elif mine and ("Used" in line or "spill" in line):
+            lines.append(line.split(":", 1)[-1].strip())
+    return lines
+
+
+def family_problems(arch, out):
+    """B5's problems on a family's main path, from the served model:
+    (a) olmoe-1b-7b's prefill of batch 1's padded prefix (layer 0), (b)
+    whisper-tiny's encoder on a batch's zero frames (layer 0). Returns
+    [(tag, q, k, v, causal)]."""
+    import torch
+
+    from repro_torch.models import layers, transformer, whisper
+
+    if arch == "olmoe-1b-7b":
+        params, cfg, prefix = first_prefill(out)
+        x = layers.embed(params, prefix, cfg)
+        q, k, v = transformer.qkv(params.layers[0], x, cfg, torch.arange(
+            prefix.shape[1], device="cuda"))
+        return [("(a) olmoe-1b-7b prefill, layer 0 of batch 1", q, k, v,
+                 True)]
+    if arch == "whisper-tiny":
+        srv = out["server"]
+        cfg, lp = srv.model_cfg, srv.params.enc_layers[0]
+        frames = torch.zeros(SERVE_BATCH, cfg.n_frames, cfg.d_model,
+                             dtype=torch.bfloat16, device="cuda")
+        x = frames + whisper.sinusoid(cfg.n_frames, cfg.d_model,
+                                      "cuda")[None].to(frames.dtype)
+        q, k, v = transformer.rotated_qkv(
+            lp.attn, layers.layernorm(lp.attn_norm, x, cfg.norm_eps), cfg,
+            torch.arange(cfg.n_frames, device="cuda"))
+        return [("(b) whisper-tiny encoder, layer 0 of a batch", q, k, v,
+                 False)]
+    return []
+
+
+def moe_prefill(out) -> int:
+    """``registry.make_prefill_fn`` for olmoe-1b-7b on batch 1's padded
+    prefix, B5's launch count from 0; checks one launch a layer and finite
+    logits. Returns the launches."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    params, cfg, prefix = first_prefill(out)
+    flash_attention_cuda.launches = 0
+    t0 = time.perf_counter()
+    lg, cache = registry.make_prefill_fn(cfg, 2048)(params,
+                                                    {"tokens": prefix})
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = flash_attention_cuda.launches
+    print(f"prefill [{cfg.name}, make_prefill_fn]: B={prefix.shape[0]} "
+          f"S={prefix.shape[1]} in {dt * 1e3:.1f} ms (first call); "
+          f"flash_attention launches={n}")
+    if n != cfg.n_layers or cache.pos != prefix.shape[1] or \
+            not bool(torch.isfinite(lg[:, :cfg.vocab]).all()):
+        raise AssertionError(f"{cfg.name}: the prefill did not run B5 once "
+                             f"a layer, or its logits are not finite")
+    return n
+
+
+def serve_families(build_logs):
+    """Phase 21: each of ``FAMILIES`` at full size through the launcher,
+    B5's launch count from 0 (the audio family's encoder once a layer a
+    batch, none for the others, every launch on the tensor-core route);
+    olmoe-1b-7b's ``make_prefill_fn`` (one launch a layer); B5 held to its
+    plain version and timed on problems (a) and (b). Returns (launches,
+    the problems' rows)."""
+    import gc
+
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.launch import serve as launch
+
+    print(f"ptxas [{TC128}]: " + (" | ".join(ptxas_lines(
+        build_logs["flash_attention"], TC128)) or "cached build, no log"))
+    routes = flash_attention_cuda.route_launches
+    launches, rows = 0, []
+    for arch in FAMILIES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention_cuda.launches = 0
+        for key in routes:
+            routes[key] = 0
+        t0 = time.perf_counter()
+        out = launch.run(["--arch", arch, *FAMILY_FLAGS, "--capacity",
+                          str(FAMILY_CAPACITY.get(arch, 2048))])
+        torch.cuda.synchronize()
+        n = flash_attention_cuda.launches
+        srv = out["server"]
+        cfg = srv.model_cfg
+        gen = [t for r in out["requests"] for t in r.generated]
+        tm = srv.timings
+        prefill_ms = sum(t.prefill_s for t in tm) * 1e3
+        decode_ms = sum(t.decode_s for t in tm) * 1e3
+        print(f"serving [{arch}]: {out['n_params']:,} parameters, "
+              f"max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; "
+              f"{out['served']} requests, {out['tok_s']:.1f} tok/s; prefill "
+              f"ms per batch {[round(t.prefill_s * 1e3, 3) for t in tm]} at "
+              f"prefixes {[t.prefix for t in tm]} "
+              f"({prefill_ms / max(sum(t.prefix for t in tm), 1):.3f} ms a "
+              f"prefix token); decode "
+              f"{decode_ms / sum(t.steps for t in tm):.3f} ms a token; "
+              f"flash_attention launches={n} {routes}; "
+              f"{time.perf_counter() - t0:.1f} s")
+        if out["served"] != SERVE_REQUESTS or out["shed"] or \
+                len(gen) != SERVE_REQUESTS * NEW_TOKENS or \
+                not all(0 <= t < cfg.vocab for t in gen):
+            raise AssertionError(f"{arch}: the server did not serve every "
+                                 f"request its {NEW_TOKENS} in-vocabulary "
+                                 f"tokens")
+        want = cfg.enc_layers * len(tm) if cfg.family == "audio" else 0
+        if n != want or routes["tensor_core"] != n:
+            raise AssertionError(f"{arch}: {n} launches of flash_attention "
+                                 f"{routes}, want {want}, all tensor-core")
+        launches += n
+        if arch == "olmoe-1b-7b":
+            launches += moe_prefill(out)
+        for tag, q, k, v, causal in family_problems(arch, out):
+            err = attention_parity(tag, q, k, v, causal)
+            row = dict(problem=tag, max_abs_err=err,
+                       **attention_row(q, k, v, causal))
+            print(f"timing [flash_attention, {tag}] {json.dumps(row)}")
+            rows.append(row)
+            del q, k, v
+        del out, srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, rows
+
+
 def main() -> int:
     import torch
 
@@ -2844,6 +3093,7 @@ def main() -> int:
 
     # -- phase 13: small serving runs, card kernels vs CPU plain path --------
     card_against_cpu()
+    families_card_against_cpu()
 
     # -- phase 14: dense escrow on phase 4's stream, launch counts from 0 ----
     s_dense, m_dense, dense_launches, _ = dense_escrow(scale, eng,
@@ -2892,6 +3142,16 @@ def main() -> int:
     for k, n in observability(scale, smi).items():
         launches[k] += n
     print(f"obs: phase 20 in {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 21: the moe, hybrid, vlm and audio families, counts from 0 ---
+    t0 = time.perf_counter()
+    n, rows = serve_families(logs)
+    launches["flash_attention"] += n
+    timing["flash_attention"]["problems"] = rows
+    timing["flash_attention"]["max_abs_err"] = max(
+        [timing["flash_attention"]["max_abs_err"]]
+        + [r["max_abs_err"] for r in rows])
+    print(f"families: phase 21 in {time.perf_counter() - t0:.1f} s")
     print(f"launches, every main path: {json.dumps(launches)}")
 
     for k in ("ramp_read", "lattice_merge", "flash_attention", "rwkv6_scan"):
@@ -2911,8 +3171,8 @@ def main() -> int:
          "plain_ms": timing[k]["plain_ms"], "bound_ms": timing[k]["bound_ms"],
          "bound_by": timing[k].get("bound_by", "bytes"),
          "library_ms": timing[k].get("library_ms"),
-         **{f: timing[k][f] for f in ("ms_n_res_0", "us_per_residual")
-            if f in timing[k]}}
+         **{f: timing[k][f] for f in ("ms_n_res_0", "us_per_residual",
+                                      "problems") if f in timing[k]}}
         for k in build.KERNELS]}
     print(f"nvidia-smi: {smi}")
     print(json.dumps(record))

@@ -1,9 +1,10 @@
 """Architecture registry: ``--arch <id>`` -> config and model functions —
 the port of ``repro.configs.registry``, for serving.
 
-Every assigned architecture's configuration is selectable. The model
-families the port runs are ``dense`` (transformer) and ``ssm`` (rwkv6);
-the others raise ``NotImplementedError``.
+Every assigned architecture is selectable, and each of the six model
+families maps onto the shared serving API (init_params / decode_step /
+a prefill step) plus its family's extra inputs (the vlm's image and the
+audio family's frames, from stub frontends).
 """
 
 from __future__ import annotations
@@ -11,7 +12,8 @@ from __future__ import annotations
 import importlib
 from typing import Callable, Optional
 
-from repro_torch.models import rwkv6, transformer
+from repro_torch.models import (hymba, moe, rwkv6, transformer, vlm,
+                                whisper)
 from repro_torch.models.config import ModelConfig
 
 ARCH_MODULES = {
@@ -29,7 +31,14 @@ ARCH_MODULES = {
 
 ARCHS = tuple(ARCH_MODULES)
 
-FAMILY_MODULES = {"dense": transformer, "ssm": rwkv6}
+FAMILY_MODULES = {
+    "dense": transformer,
+    "moe": moe,
+    "ssm": rwkv6,
+    "hybrid": hymba,
+    "vlm": vlm,
+    "audio": whisper,
+}
 
 
 def get_config(arch: str) -> ModelConfig:
@@ -39,10 +48,6 @@ def get_config(arch: str) -> ModelConfig:
 
 
 def model_module(cfg: ModelConfig):
-    if cfg.family not in FAMILY_MODULES:
-        raise NotImplementedError(
-            f"the {cfg.family} family ({cfg.name}) is not ported yet "
-            f"(ROADMAP Queue A item 10)")
     return FAMILY_MODULES[cfg.family]
 
 
@@ -62,14 +67,20 @@ def make_decode_fn(cfg: ModelConfig) -> Callable:
 
 def make_prefill_fn(cfg: ModelConfig, capacity: Optional[int] = None
                     ) -> Callable:
-    """Uniform prefill step: last-token logits over the whole prompt and
-    the decode state after it, through the prefill kernels (B5 for dense,
-    whose KV cache gets ``capacity`` slots a sequence; B6 for ssm) on the
-    card and their plain versions on the CPU. The dense prefill attends to
-    K/V as its cache returns them (``read_back``), as the reference
-    ``Server``'s token-at-a-time prefix does; with a KV cache in the
-    activations' dtype that is the reference's ``prefill``, which runs
-    without its kernels."""
+    """Uniform prefill step over ``batch["tokens"]`` (and the vlm's
+    ``image_embeds``, the audio family's ``frames``), as the reference's:
+
+    * dense and moe build the KV cache (``capacity`` slots a sequence) and
+      return (last-token logits, cache), through kernel B5 once a layer on
+      the card. The dense prefill attends to K/V as its cache returns them
+      (``read_back``), as the reference ``Server``'s token-at-a-time prefix
+      does; with a KV cache in the activations' dtype that is the
+      reference's ``prefill``;
+    * ssm returns (last-token logits, recurrent state), through kernel B6;
+    * hybrid, vlm and audio return the backbone's last-token logits (their
+      caches are built by the decode steps).
+
+    On the CPU the kernels' plain versions run."""
     mod = model_module(cfg)
     if cfg.family == "dense":
         def prefill(params, batch):
@@ -77,8 +88,27 @@ def make_prefill_fn(cfg: ModelConfig, capacity: Optional[int] = None
                                capacity=capacity, use_flash=True,
                                read_back=True)
         return prefill
+    if cfg.family == "moe":
+        def prefill(params, batch):
+            return mod.prefill(params, batch["tokens"], cfg,
+                               capacity=capacity, use_flash=True)
+        return prefill
+    if cfg.family == "ssm":
+        def prefill(params, batch):
+            return mod.forward(params, batch["tokens"], cfg, use_kernel=True,
+                               last_only=True)
+        return prefill
+    if cfg.family == "vlm":
+        def prefill(params, batch):
+            return mod.forward(params, batch["tokens"], batch["image_embeds"],
+                               cfg, last_only=True)
+        return prefill
+    if cfg.family == "audio":
+        def prefill(params, batch):
+            return mod.forward(params, batch["tokens"], batch["frames"], cfg,
+                               last_only=True)
+        return prefill
 
-    def prefill(params, batch):  # ssm
-        return mod.forward(params, batch["tokens"], cfg, use_kernel=True,
-                           last_only=True)
+    def prefill(params, batch):  # hybrid
+        return mod.forward(params, batch["tokens"], cfg, last_only=True)
     return prefill

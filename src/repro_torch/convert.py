@@ -122,23 +122,53 @@ def tree_from_numpy(src, device):
     return _tensor(src, device)
 
 
+# the layer stacks of each family's parameter tree: path -> stacked dims
+_STACKS = {("layers",): 1, ("enc_layers",): 1, ("dec_layers",): 1,
+           ("groups", "self"): 2, ("groups", "cross"): 1}
+
+
 def params_from_numpy(tree, cfg, device):
     """A reference model's parameter pytree as numpy arrays (dicts of
-    float32 masters, the per-layer leaves stacked on a leading ``[L]``), as
+    float32 masters, each layer stack's leaves stacked on leading dims), as
     the port's model on ``device`` with the same values: one ``Params``
-    group per dict, and ``layers`` an ``nn.ModuleList`` of ``cfg.n_layers``
-    groups, layer i taking slice i of every stacked leaf. Serves both the
-    dense and the ssm family."""
+    group per dict, and each stack an ``nn.ModuleList`` whose entry i takes
+    slice i of every leaf below it. The stacks (``_STACKS``): ``layers``
+    [L] (dense, moe, ssm, hybrid; a moe layer's expert tensors [E, d, f]
+    stay whole in its group), whisper's ``enc_layers`` and ``dec_layers``,
+    and the vlm's ``groups.self`` [G, S] (a list of G lists) and
+    ``groups.cross`` [G]. A stack whose length differs from ``cfg``'s
+    layer count raises."""
     from repro_torch.models.layers import Params
 
-    def build(node, layer=None):
+    def take(node, i):
         if isinstance(node, dict):
-            return Params(**{k: build(v, layer) for k, v in node.items()})
-        a = np.asarray(node)
-        return _tensor(a if layer is None else a[layer], device,
-                       torch.float32)
+            return {k: take(v, i) for k, v in node.items()}
+        return np.asarray(node)[i]
 
-    model = build({k: v for k, v in tree.items() if k != "layers"})
-    model.layers = nn.ModuleList(build(tree["layers"], i)
-                                 for i in range(cfg.n_layers))
-    return model
+    def length(node):
+        while isinstance(node, dict):
+            if not node:
+                return 0
+            node = next(iter(node.values()))
+        return np.asarray(node).shape[0]
+
+    def unstack(node, depth, path):
+        want = {("layers",): cfg.n_layers, ("dec_layers",): cfg.n_layers,
+                ("enc_layers",): cfg.enc_layers}.get(path)
+        if want is not None and length(node) != want:
+            raise ValueError(f"{'.'.join(path)} stacks {length(node)} "
+                             f"layers, the configuration {want}")
+        return nn.ModuleList(
+            unstack(take(node, i), depth - 1, path) if depth > 1
+            else build(take(node, i), path)
+            for i in range(length(node)))
+
+    def build(node, path=()):
+        if isinstance(node, dict):
+            return Params(**{
+                k: unstack(v, _STACKS[path + (k,)], path + (k,))
+                if path + (k,) in _STACKS else build(v, path + (k,))
+                for k, v in node.items()})
+        return _tensor(np.asarray(node), device, torch.float32)
+
+    return build(tree)

@@ -4,6 +4,9 @@ on the CUDA card unless ``--device cpu`` is given.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
       --reduced --device cpu --requests 16 --new-tokens 8
 
+Every arch of the registry serves through it (the six families); without
+``--reduced`` at its published width and depth.
+
 The flags and the prompt draws are the reference launcher's
 (``repro.launch.serve``); the weights are random, from seed 0.
 """
@@ -46,6 +49,8 @@ def run(argv=None) -> dict:
     if args.reduced:
         cfg = cfg.reduced()
     params = registry.init_params(cfg, 0, device)
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"model: {cfg.name} ({cfg.family}), {n_params:,} parameters")
     srv = Server(cfg, params, ServeConfig(
         max_batch=args.batch, capacity=args.capacity,
         max_new_tokens=args.new_tokens, admission_budget=args.budget,
@@ -81,7 +86,7 @@ def run(argv=None) -> dict:
               f"{t.decode_s * 1e3 / max(t.steps, 1):.2f} ms a token")
     print(f"bookkeeping: {rep}")
     return dict(server=srv, requests=served, served=done, shed=shed,
-                seconds=dt, tok_s=tok_s, report=rep)
+                seconds=dt, tok_s=tok_s, report=rep, n_params=n_params)
 
 
 def main(argv=None) -> int:

@@ -30,7 +30,7 @@ class Params(nn.Module):
     """A named group of parameters (float32 masters, no gradient) and
     sub-groups: the port of one of the reference's parameter dicts."""
 
-    def __init__(self, **entries):
+    def __init__(self, /, **entries):     # an entry may be named "self"
         super().__init__()
         for name, x in entries.items():
             if isinstance(x, nn.Module):
@@ -106,7 +106,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Attention (GQA, causal / bidirectional / sliding-window)
+# Attention (GQA, causal / bidirectional / sliding-window / cross)
 # ---------------------------------------------------------------------------
 
 
@@ -218,21 +218,30 @@ def attend(q, k, v, q_pos, k_pos, causal: bool = True, window: int = 0,
 def attention_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
                     positions: torch.Tensor, causal: bool = True,
                     window: int = 0, use_flash: bool = False,
+                    kv_override: Optional[tuple[torch.Tensor,
+                                                torch.Tensor]] = None,
                     kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Self-attention. (The reference's ``kv_override`` serves the
-    cross-attention of the vlm and audio families, which the port does not
-    run yet.)"""
+    """Self-attention, or cross-attention when ``kv_override`` supplies
+    K/V [B, Sk, KV, hd] already projected from the source states: then
+    neither side is rotated, the keys sit at ``arange(Sk)`` and the flash
+    route is never taken."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim()
     H, KV = cfg.n_heads, cfg.n_kv_heads
     q = _proj(x, p.wq, p.get("wq_b")).reshape(B, S, H, hd)
-    k = _proj(x, p.wk, p.get("wk_b")).reshape(B, S, KV, hd)
-    v = _proj(x, p.wv, p.get("wv_b")).reshape(B, S, KV, hd)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    out = attend(q, k, v, positions, positions, causal=causal, window=window,
-                 kv_mask=kv_mask, use_flash=use_flash, impl=cfg.attn_impl,
-                 block_k=cfg.attn_block_k)
+    if kv_override is None:
+        k = _proj(x, p.wk, p.get("wk_b")).reshape(B, S, KV, hd)
+        v = _proj(x, p.wv, p.get("wv_b")).reshape(B, S, KV, hd)
+        k_pos = positions
+        k = apply_rope(k, k_pos, cfg.rope_theta)
+        q = apply_rope(q, positions, cfg.rope_theta)
+    else:
+        k, v = kv_override
+        k_pos = torch.arange(k.shape[1], device=x.device)
+    out = attend(q, k, v, positions, k_pos, causal=causal, window=window,
+                 kv_mask=kv_mask,
+                 use_flash=use_flash and kv_override is None,
+                 impl=cfg.attn_impl, block_k=cfg.attn_block_k)
     return out.reshape(B, S, H * hd) @ p.wo.to(out.dtype)
 
 
@@ -287,5 +296,7 @@ def logits(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     vp = out.shape[-1]
     if vp != cfg.vocab:  # mask padded vocab tail (never predicted/summed)
         tail = torch.arange(vp, device=out.device) >= cfg.vocab
-        out = out.masked_fill(tail, NEG)
+        # the fill cast to the logits' dtype, as the reference casts it:
+        # float32's min rounds to -inf in bfloat16
+        out = out.masked_fill(tail, torch.tensor(NEG).to(out.dtype).item())
     return out

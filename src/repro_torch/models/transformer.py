@@ -1,11 +1,15 @@
 """Dense decoder-only transformer (llama/qwen family) — the port of
 ``repro.models.transformer``, for serving.
 
-Covers qwen1.5-32b, smollm-360m, tinyllama-1.1b, minitron-8b. The layers
-are an ``nn.ModuleList`` walked by a Python loop (the reference scans
-stacked parameters).
+Covers qwen1.5-32b, smollm-360m, tinyllama-1.1b, minitron-8b; the MoE
+family swaps the FFN (``moe``), and ``hymba``, ``vlm`` and ``whisper``
+reuse its layers and its cached attention. The layers are an
+``nn.ModuleList`` walked by a Python loop (the reference scans stacked
+parameters).
 
-API (shared with ``rwkv6``):
+API (``init_params``, ``forward`` and ``decode_step`` shared by every
+family, vlm and whisper taking their image or frames beside the tokens;
+``prefill`` shared with moe):
   init_params(cfg, seed, device)            -> the model (a ``Params``)
   forward(params, tokens, cfg, ...)         -> [B, S, V] logits
   prefill(params, tokens, cfg, ...)         -> (last-token logits, KVCache)
@@ -78,10 +82,16 @@ def qkv(lp: L.Params, x: torch.Tensor, cfg: ModelConfig,
         positions: torch.Tensor) -> tuple[torch.Tensor, ...]:
     """A layer's rotated q [B, S, H, hd] and k, and v [B, S, KV, hd], from
     its input ``x`` [B, S, d] at ``positions`` [S]."""
-    B, S, _ = x.shape
+    return rotated_qkv(lp.attn, L.rmsnorm(lp.attn_norm, x, cfg.norm_eps),
+                       cfg, positions)
+
+
+def rotated_qkv(a: L.Params, xa: torch.Tensor, cfg: ModelConfig,
+                positions: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The attention group ``a``'s rotated q and k, and v, from its
+    normalized input ``xa`` [B, S, d]."""
+    B, S, _ = xa.shape
     hd = cfg.resolved_head_dim()
-    a = lp.attn
-    xa = L.rmsnorm(lp.attn_norm, x, cfg.norm_eps)
     q = L._proj(xa, a.wq, a.get("wq_b")).reshape(B, S, cfg.n_heads, hd)
     k = L._proj(xa, a.wk, a.get("wk_b")).reshape(B, S, cfg.n_kv_heads, hd)
     v = L._proj(xa, a.wv, a.get("wv_b")).reshape(B, S, cfg.n_kv_heads, hd)
@@ -89,26 +99,34 @@ def qkv(lp: L.Params, x: torch.Tensor, cfg: ModelConfig,
             L.apply_rope(k, positions, cfg.rope_theta), v)
 
 
+def attn_residual(lp: L.Params, x: torch.Tensor,
+                  out: torch.Tensor) -> torch.Tensor:
+    """The residual stream after attention: ``x`` plus the heads ``out``
+    [B, S, H, hd] through the output projection."""
+    B, S = out.shape[:2]
+    return x + out.reshape(B, S, -1) @ lp.attn.wo.to(out.dtype)
+
+
 def _finish_layer(lp: L.Params, x: torch.Tensor, out: torch.Tensor,
                   cfg: ModelConfig) -> torch.Tensor:
     """The attention output projection, the residual and the MLP."""
-    B, S = out.shape[:2]
-    x = x + out.reshape(B, S, -1) @ lp.attn.wo.to(out.dtype)
+    x = attn_residual(lp, x, out)
     return x + L.mlp_apply(lp.mlp, L.rmsnorm(lp.mlp_norm, x, cfg.norm_eps),
                            cfg.act)
 
 
-def _decode_layer(lp: L.Params, layer_kv: kvc.LayerKV, x: torch.Tensor,
-                  cfg: ModelConfig, pos: int,
-                  window: int) -> tuple[torch.Tensor, kvc.LayerKV]:
-    """One token (x: [B, 1, d]) against this layer's cache."""
-    B = x.shape[0]
-    at = torch.full((1,), pos, device=x.device)   # no host-to-card copy
-    q, k, v = qkv(lp, x, cfg, at)
-    layer_kv = kvc.write(layer_kv, k, v, pos)
-    k_all, v_all = kvc.read(layer_kv, x.dtype)
+def cached_attention(layer_kv: kvc.LayerKV, q: torch.Tensor,
+                     k: torch.Tensor, v: torch.Tensor, pos: int,
+                     window: int) -> torch.Tensor:
+    """One token's attention against a layer's ring cache: writes its k, v
+    [B, 1, KV, hd] at ``pos`` (in place) and attends q [B, 1, H, hd] to
+    every written slot, or with ``window`` to those holding one of the
+    last ``window`` positions. Returns [B, 1, H, hd]."""
+    B = q.shape[0]
+    kvc.write(layer_kv, k, v, pos)
+    k_all, v_all = kvc.read(layer_kv, q.dtype)
     cap = k_all.shape[1]
-    slots = torch.arange(cap, device=x.device)
+    slots = torch.arange(cap, device=q.device)
     # absolute position each ring slot currently holds
     ring_pos = torch.where(slots <= pos % cap, slots, slots - cap) \
         + (pos // cap) * cap
@@ -116,8 +134,17 @@ def _decode_layer(lp: L.Params, layer_kv: kvc.LayerKV, x: torch.Tensor,
     if window:
         valid &= ring_pos > (pos - window)
     kv_mask = valid[None, :].expand(B, cap)
-    out = L.attend(q, k_all, v_all, at, ring_pos, causal=False, window=0,
-                   kv_mask=kv_mask)
+    at = torch.full((1,), pos, device=q.device)   # no host-to-card copy
+    return L.attend(q, k_all, v_all, at, ring_pos, causal=False, window=0,
+                    kv_mask=kv_mask)
+
+
+def _decode_layer(lp: L.Params, layer_kv: kvc.LayerKV, x: torch.Tensor,
+                  cfg: ModelConfig, pos: int,
+                  window: int) -> tuple[torch.Tensor, kvc.LayerKV]:
+    """One token (x: [B, 1, d]) against this layer's cache."""
+    q, k, v = qkv(lp, x, cfg, torch.full((1,), pos, device=x.device))
+    out = cached_attention(layer_kv, q, k, v, pos, window)
     return _finish_layer(lp, x, out, cfg), layer_kv
 
 

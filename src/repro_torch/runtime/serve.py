@@ -10,15 +10,25 @@ piece of server state; this runtime realizes it:
   its share, refreshed off the hot path;
 * served counter — G-counter slots, read at report time.
 
-A batch is one prefill over the teacher-forced prompt prefix — kernel B5
-(dense) or B6 (ssm) once per layer on the card — then one ``decode_step``
-per generated token. The reference feeds the prefix through
-``decode_step`` a token at a time. The one-pass prefill computes the same
-function: every prefix position attends causally to the K/V the cache
-holds for it, dequantized from int8 or cast to the activations' dtype as
-the reference's ``kvc.read`` returns them, and the RWKV state is the
-scan's. The two differ only in the order of float sums, not in the
+A dense or ssm batch is one prefill over the teacher-forced prompt
+prefix — kernel B5 (dense) or B6 (ssm) once per layer on the card — then
+one ``decode_step`` per generated token. The reference feeds the prefix
+through ``decode_step`` a token at a time. The one-pass prefill computes
+the same function: every prefix position attends causally to the K/V the
+cache holds for it, dequantized from int8 or cast to the activations'
+dtype as the reference's ``kvc.read`` returns them, and the RWKV state is
+the scan's. The two differ only in the order of float sums, not in the
 function.
+
+The moe, hybrid, vlm and audio families feed the prefix through
+``decode_step`` a token at a time, as the reference does. For moe that is
+a matter of the function, not of speed: the MoE drops the assignments past
+an expert's capacity, which follows from the tokens dispatched together
+(B at a decode step, B S in a one-pass prefill), so a one-pass prefill
+would drop others and generate other tokens. The vlm's cache starts with
+the cross K/V of a zero image, the audio family's with those of the
+encoded zero frames (the encoder's self-attention through B5,
+non-causal, on the card).
 """
 
 from __future__ import annotations
@@ -33,8 +43,12 @@ import torch
 from repro_torch.configs import registry
 from repro_torch.core.lattice import EscrowCounter
 from repro_torch.device import resolve_device, synchronize
-from repro_torch.models import kv_cache, rwkv6
+from repro_torch.models import hymba, kv_cache, rwkv6, vlm, whisper
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import dtype_of
+
+# the families whose prompt prefix goes through decode_step a token at a time
+TEACHER_FORCED = ("moe", "hybrid", "vlm", "audio")
 
 
 @dataclasses.dataclass
@@ -59,7 +73,8 @@ class Request:
 @dataclasses.dataclass
 class BatchTiming:
     """Host wall time of one ``serve_batch``, each part ended by a device
-    synchronize: the prefill (with its cache) and the decode loop."""
+    synchronize: the prefill (with its cache; for ``TEACHER_FORCED``
+    families the prefix's decode steps) and the decode loop."""
 
     batch: int
     prefix: int          # tokens prefilled a sequence (P - 1)
@@ -105,20 +120,39 @@ class Server:
     # -- batched generation --------------------------------------------------
 
     def _make_cache(self, batch: int):
-        cfg = self.model_cfg
+        cfg, dev = self.model_cfg, self.device
         if cfg.family == "ssm":
-            return rwkv6.stacked_state(cfg, batch, self.device)
+            return rwkv6.stacked_state(cfg, batch, dev)
+        if cfg.family == "hybrid":
+            return hymba.make_cache(cfg, batch, dev)
+        if cfg.family == "vlm":
+            cache = vlm.make_cache(cfg, batch, self.cfg.capacity, dev)
+            img = torch.zeros(batch, cfg.image_tokens, cfg.d_model,
+                              dtype=dtype_of(cfg), device=dev)
+            ck, cv = vlm.build_cross_kv(self.params, img, cfg)
+            return cache._replace(ck=ck.to(cache.ck.dtype),
+                                  cv=cv.to(cache.cv.dtype))
+        if cfg.family == "audio":
+            cache = whisper.make_cache(cfg, batch, self.cfg.capacity, dev)
+            frames = torch.zeros(batch, cfg.n_frames, cfg.d_model,
+                                 dtype=dtype_of(cfg), device=dev)
+            enc = whisper.encode(self.params, frames, cfg, use_flash=True)
+            ck, cv = whisper.build_cross_kv(self.params, enc, cfg)
+            return cache._replace(ck=ck.to(cache.ck.dtype),
+                                  cv=cv.to(cache.cv.dtype))
         return kv_cache.make_cache(cfg, cfg.n_layers, batch,
-                                   self.cfg.capacity, self.device)
+                                   self.cfg.capacity, dev)
 
     def serve_batch(self, requests: list[Request]) -> list[Request]:
-        """Prefill the teacher-forced prefix ``pad[:, :P-1]`` in one pass,
-        then generate from ``pad[:, P-1]``; a simple static batch. Shorter
+        """Prefill the teacher-forced prefix ``pad[:, :P-1]`` (in one pass,
+        or for ``TEACHER_FORCED`` families a token at a time), then
+        generate from ``pad[:, P-1]``; a simple static batch. Shorter
         prompts are padded with token 0 and fed like the rest, as in the
         reference. A dense prefix longer than the KV capacity raises."""
         B = len(requests)
         P = max(len(r.prompt) for r in requests)
-        if self.model_cfg.family == "dense" and P - 1 > self.cfg.capacity:
+        family = self.model_cfg.family
+        if family == "dense" and P - 1 > self.cfg.capacity:
             raise ValueError(f"prompt prefix of {P - 1} tokens exceeds the "
                              f"KV capacity {self.cfg.capacity}")
         pad = np.zeros((B, P), np.int32)
@@ -126,11 +160,13 @@ class Server:
             pad[i, :len(r.prompt)] = r.prompt
         tokens = torch.from_numpy(pad).long().to(self.device)
         t0 = time.perf_counter()
-        if P > 1:
+        if P > 1 and family not in TEACHER_FORCED:
             _, cache = self._prefill(self.params,
                                      {"tokens": tokens[:, :P - 1]})
         else:
             cache = self._make_cache(B)
+            for t in range(P - 1):
+                _, cache = self._decode(self.params, cache, tokens[:, t])
         synchronize(self.device)
         t1 = time.perf_counter()
         token = tokens[:, P - 1]

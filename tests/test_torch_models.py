@@ -3,8 +3,10 @@
 on the CPU.
 
 * every assigned architecture's configuration, its reduced form and its
-  parameter counts equal the reference's; the families the port does not
-  run raise ``NotImplementedError``;
+  parameter counts equal the reference's, and so do the shapes of its
+  reduced model's parameters, each layer stack's included (all six
+  families; ``tests/test_torch_families.py`` runs moe, hybrid, vlm and
+  audio);
 * rmsnorm, layernorm, RoPE, masking, the naive, chunked and flash
   attention branches, the MLPs and the logits with a padded vocab;
 * the KV cache: int8 quantize and dequantize exactly equal, ring writes;
@@ -79,31 +81,31 @@ def test_config_and_counts_match_reference(arch):
                              for k, v in jconfig.SHAPES.items()}
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "hymba-1.5b",
-                                  "llama-3.2-vision-11b", "whisper-tiny"])
-def test_families_not_ported_raise(arch):
-    cfg = registry.get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 10"):
-        registry.init_params(cfg, device=CPU)
-
-
-@pytest.mark.parametrize("arch", ["smollm-360m", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", jregistry.ARCHS)
 def test_param_shapes_match_reference(arch):
+    """Every parameter of the reduced model, with each layer stack's
+    ``nn.ModuleList`` indices read back as the reference's leading stacked
+    dims (``layers`` [L], whisper's ``enc_layers`` and ``dec_layers``, the
+    vlm's ``groups.self`` [G, S] and ``groups.cross`` [G])."""
     cfg = registry.get_config(arch).reduced()
     jp = jax.eval_shape(lambda: jregistry.init_params(
         jax.random.PRNGKey(0), jregistry.get_config(arch).reduced()))
     flat = {"/".join(str(getattr(k, "key", k)) for k in path): leaf.shape
             for path, leaf in jax.tree_util.tree_flatten_with_path(jp)[0]}
     model = registry.init_params(cfg, seed=0, device=CPU)
-    got = {}
+    stacked = {}
     for name, p in model.named_parameters():
         parts = name.split(".")
         assert p.dtype == torch.float32 and not p.requires_grad
-        if parts[0] == "layers":
-            key = "/".join(["layers"] + parts[2:])
-            got.setdefault(key, (cfg.n_layers, *p.shape))
-        else:
-            got["/".join(parts)] = tuple(p.shape)
+        key = "/".join(x for x in parts if not x.isdigit())
+        stacked.setdefault(key, []).append(
+            ([int(x) for x in parts if x.isdigit()], tuple(p.shape)))
+    got = {}
+    for key, entries in stacked.items():
+        assert len({shape for _, shape in entries}) == 1, key
+        lead = tuple(max(idx[d] for idx, _ in entries) + 1
+                     for d in range(len(entries[0][0])))
+        got[key] = lead + entries[0][1]
     assert got == {k: tuple(v) for k, v in flat.items()}
 
 
@@ -199,6 +201,30 @@ def test_embed_and_logits_match_reference(arch):
     want = jL.logits(jp, jnp.asarray(x.numpy()), jcfg, RULES)
     assert lg.shape == want.shape
     _close(lg, want)
+
+
+@pytest.mark.parametrize("arch", ["whisper-tiny", "olmoe-1b-7b"])
+def test_bfloat16_logits_mask_the_padded_vocab_as_the_reference(arch):
+    """At bfloat16 (the published configs' dtype) the padded vocab tail
+    takes float32's min cast to bfloat16, -inf, as in the reference:
+    whisper's 51865 pads to 52224, olmoe's 50304 to 50432."""
+    cfg = dataclasses.replace(registry.get_config(arch).reduced(),
+                              vocab=registry.get_config(arch).vocab,
+                              dtype="bfloat16")
+    jcfg = dataclasses.replace(jregistry.get_config(arch).reduced(),
+                               vocab=cfg.vocab, dtype="bfloat16")
+    assert cfg.padded_vocab() > cfg.vocab
+    jp = jL.embedding_init(jax.random.PRNGKey(4), jcfg)
+    tp = params_from_numpy(jax.device_get({**jp, "layers": {}}), dataclasses.
+                           replace(cfg, n_layers=0), CPU)
+    x = _normal((2, 3, cfg.d_model), seed=15)
+    lg = layers.logits(tp, torch.from_numpy(x).to(torch.bfloat16), cfg)
+    want = jL.logits(jp, jnp.asarray(x).astype(jnp.bfloat16), jcfg, RULES)
+    assert lg.dtype == torch.bfloat16
+    assert bool(torch.isneginf(lg[..., cfg.vocab:]).all())
+    np.testing.assert_array_equal(_np(lg[..., cfg.vocab:]),
+                                  _np(want[..., cfg.vocab:]))
+    _close(lg[..., :cfg.vocab], want[..., :cfg.vocab], 2e-2)
 
 
 # ---------------------------------------------------------------------------

@@ -4,8 +4,8 @@ alone, the five-transaction mix, the anti-entropy merge of divergent
 replica snapshots, LM serving (all six model families), the dense
 escrow layout, the coordinated 2PC baseline, TPC-C as four replicas on
 one card, their cold-retry ring, crash recovery with self-detecting
-liveness, the fused executor (a chunk of batches as one CUDA graph) and
-the observability plane with the TPC-C serving driver.
+liveness, the fused executor (a chunk of batches as one CUDA graph), the
+observability plane with the TPC-C serving driver, and LM training.
 
     python3 chip_smoke.py
 
@@ -179,7 +179,25 @@ six CUDA kernels of the port from ``src/repro_torch/kernels/csrc`` (one
      the two problems these paths give it: (a) olmoe's prefill, hd 128,
      causal, (b) whisper's encoder, S 1500, non-causal; the hd-128
      tensor-core kernel's registers and spills; per model its parameters,
-     ``max_memory_allocated``, tok/s, prefill and decode ms.
+     ``max_memory_allocated``, tok/s, prefill and decode ms;
+ 22. training (``repro_torch.runtime.train.run``, ``optim.coord.build``,
+     ``runtime.failures.PodSimulator``), which launches none of the six
+     kernels (their counts must not move): (a) each of the six families
+     reduced, in float32 and in bf16 on float32 masters, one sync step on
+     the card against the same step on the CPU from the same parameters
+     and batch, the loss, the gradients and the update within
+     ``TRAIN_TOL`` (``TRAIN_TOL_BF16`` in bf16); (b) smollm-360m at full
+     width, sync, 20 pipeline steps of 8 x 512 tokens, remat, bf16 on
+     float32 masters, AdamW with escrow clipping: tokens/s, peak memory,
+     the loss finite; then 12 steps on one fixed batch, each timed by
+     CUDA events, whose loss must fall; (c) 2 pods, hierarchical, the int8 merge every
+     4 of 12 steps: the pods apart before each merge and equal after it,
+     each merge's device ms and counted bytes; (d) under deterministic
+     algorithms, a checkpoint at step 10 and a restart to 20 equal to an
+     uninterrupted 20-step run bit for bit, with the save's and the
+     restore's seconds; (e) ``PodSimulator`` on 2 pods, reduced: a kill, a
+     survivor's step, the recovery, a merge: valid, divergence 0, each
+     token counted once.
 
 The deployment is TPC-C at the specification's per-warehouse cardinalities
 (TPC-C standard specification, clause 4.3.3.1: 10 districts, 3000 customers
@@ -199,13 +217,15 @@ its text context of 448 as the KV capacity).
 
 Launch counters are set to 0 just before each main path (phases 3-4, 7,
 8, 10, 11, 12, 14, 15, each run of 16, 17, 18, 19 and 20, and each model
-and the prefill of 21) and read just after. The second-to-last line of output is the kernels' JSON record;
+and the prefill of 21) and read just after; phase 22 launches no kernel,
+so the counts read before and after it must be equal. The second-to-last line of output is the kernels' JSON record;
 the last line is the device record. Any failure exits non-zero; so does
 a machine without a CUDA device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -2882,6 +2902,439 @@ def serve_families(build_logs):
     return launches, rows
 
 
+# phase 22: training on the card. smollm-360m at its published width and
+# depth (HF HuggingFaceTB/SmolLM-360M), random weights from SEED, bf16
+# compute on float32 masters, remat on, AdamW with escrow clipping.
+TRAIN_ARCH = "smollm-360m"
+TRAIN_BATCH = 8
+TRAIN_SEQ = 512
+TRAIN_STEPS = 20          # (b) and (d): steps from the pipeline
+TRAIN_LOG = 5             # (b): log-boundary reads
+FIXED_STEPS = 12          # (b): one fixed batch, the loss must fall
+POD_STEPS = 12            # (c): 2 pods, hierarchical, int8
+POD_MERGE = 4
+CKPT_AT = 10              # (d): checkpoint, then restart to TRAIN_STEPS
+TRAIN_FAMILIES = ("smollm-360m", "olmoe-1b-7b", "rwkv6-3b", "hymba-1.5b",
+                  "llama-3.2-vision-11b", "whisper-tiny")
+TRAIN_TOL = 1e-4          # (a): card vs CPU, float32: loss, gradients
+TRAIN_TOL_BF16_LOSS = 2 ** -8   # (a), bf16: the loss, relative (bf16's u)
+TRAIN_TOL_BF16 = 2 ** -5        # (a), bf16: gradients norm-wise (8 u)
+
+
+def _train_opt(**kw):
+    from repro_torch.optim import adamw
+    return adamw.AdamWConfig(**{**dict(lr=3e-4, warmup_steps=2,
+                                       total_steps=TRAIN_STEPS), **kw})
+
+
+def _state_to(state, device):
+    from repro_torch.core import tree as T
+    return T.map(lambda x: x.to(device), state)
+
+
+def _state_err(a, b) -> float:
+    from repro_torch.core import tree as T
+    return _max_abs_err(T.leaves(_state_to(a, "cpu")),
+                        T.leaves(_state_to(b, "cpu")))
+
+
+def _pod_divergence(state) -> float:
+    """Max distance between the two pods' parameters (a deferred state's
+    leaves carry the pods on their leading dim)."""
+    from repro_torch.core import tree as T
+    return max(float((x[0].float() - x[1].float()).abs().max())
+               for x in T.leaves(state.params))
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """``torch.use_deterministic_algorithms(True)`` (with the cuBLAS
+    workspace setting it asks for) inside the block: the embedding's
+    backward otherwise adds with atomics, in an order that varies."""
+    import torch
+
+    saved = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if saved is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved
+
+
+def _norm_err(got, want) -> float:
+    """||got - want|| / ||want|| over all the leaves of two trees, in
+    float64."""
+    from repro_torch.core import tree as T
+    num = den = 0.0
+    for x, y in zip(T.leaves(got), T.leaves(want)):
+        x, y = x.detach().cpu().double(), y.detach().cpu().double()
+        num += float(((x - y) ** 2).sum())
+        den += float((y ** 2).sum())
+    return (num / den) ** 0.5
+
+
+def train_families_card_against_cpu(smi):
+    """Phase 22 (a): each family reduced, one sync step on the card against
+    the same step on the CPU, from the same parameters and batch
+    (``make_train_batch`` on a seeded CPU generator; the vlm's image and
+    the audio family's frames included), under deterministic algorithms.
+
+    Float32: the loss within ``TRAIN_TOL`` relative; every gradient leaf
+    within ``TRAIN_TOL`` of the leaf's largest CPU value (and 1e-7); and
+    the card's updated state, params and both moments, within 1e-6 of the
+    CPU's AdamW applied to the card's gradients. The card's state against
+    the CPU's own step is printed, not held: Adam's first step divides
+    each gradient by its magnitude plus 1e-8, so an element whose gradient
+    is float roundoff on both devices moves by up to the learning rate
+    either way.
+
+    bf16 compute on the float32 masters (the configuration's ``dtype``
+    ``bfloat16``, the same parameters and batch, its floats rounded to
+    bf16), as (b)-(d) train: the loss within ``TRAIN_TOL_BF16_LOSS``
+    relative; the gradient tree within ``TRAIN_TOL_BF16`` of the CPU's
+    (norm-wise, ``_norm_err``); the card's gradients nearer the CPU's
+    bf16 gradients than the CPU's float32 ones, so a step that ran in
+    another dtype, or left a cast out, fails; the update as in float32."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.core import tree as T
+    from repro_torch.optim import adamw, coord
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    opt = _train_opt(lr=1e-3, warmup_steps=1)
+    for arch in TRAIN_FAMILIES:
+        base = registry.get_config(arch).reduced()
+        batch32 = registry.make_train_batch(
+            torch.Generator().manual_seed(SEED), base, 4, 32)
+        grads32 = None
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(base, dtype=dtype)
+            loss_fn = registry.make_loss_fn(cfg)
+            setups = {dev: coord.build(cfg, coord.CoordConfig(), opt,
+                                       registry.make_loss_fn, device=dev)
+                      for dev in ("cpu", "cuda")}
+            state = setups["cpu"].init_fn(SEED)
+            on_card = _state_to(state, "cuda")
+            batch = {k: v.to(getattr(torch, dtype)) if v.is_floating_point()
+                     else v for k, v in batch32.items()}
+            with _deterministic():
+                want = setups["cpu"].step_fn(state, batch)
+                got = setups["cuda"].step_fn(on_card, batch)
+                loss, grads = coord.value_and_grad(loss_fn, state.params,
+                                                   batch)
+                card_loss, card_grads = coord.value_and_grad(
+                    loss_fn, on_card.params, _state_to(batch, "cuda"))
+            loss_err = abs(float(card_loss) - float(loss)) / abs(float(loss))
+            grad_err = max(
+                float((a.cpu() - b).abs().max())
+                / (float(b.abs().max()) + 1e-7)
+                for a, b in zip(T.leaves(card_grads), T.leaves(grads)))
+            norm_err = _norm_err(card_grads, grads)
+            replay = adamw.update(dataclasses.replace(opt, num_replicas=1),
+                                  _state_to(card_grads, "cpu"), state.opt,
+                                  state.params)
+            update_err = _max_abs_err(
+                T.leaves(_state_to((got.params, got.opt.mu, got.opt.nu),
+                                   "cpu")),
+                T.leaves((replay[0], replay[1].mu, replay[1].nu)))
+            step_err = _state_err(got, want)
+            same_loss = torch.equal(got.loss_slots, card_loss.reshape(1))
+            line = (f"training, card vs CPU [{arch}, reduced, {dtype}]: loss "
+                    f"{float(loss):.6f}, relative err {loss_err:.3g}; "
+                    f"gradients' err {grad_err:.3g} of each leaf's largest, "
+                    f"{norm_err:.3g} norm-wise")
+            if grads32 is None:
+                grads32 = grads
+                ok = (loss_err <= TRAIN_TOL and grad_err <= TRAIN_TOL)
+            else:
+                to32 = _norm_err(card_grads, grads32)
+                cpu_gap = _norm_err(grads, grads32)
+                line += (f", {to32:.3g} from the CPU's float32 gradients "
+                         f"(the CPU's bf16 {cpu_gap:.3g} from them)")
+                ok = (loss_err <= TRAIN_TOL_BF16_LOSS
+                      and norm_err <= TRAIN_TOL_BF16 and norm_err < to32)
+            print(f"{line}; card step vs AdamW on the CPU from the card's "
+                  f"gradients max_abs_err {update_err:.3g}; card step vs "
+                  f"CPU step max_abs_err {step_err:.3g} (not held); {smi}")
+            if not (ok and update_err <= 1e-6 and same_loss):
+                raise AssertionError(f"training [{arch}, {dtype}]: the "
+                                     f"card's step differs from the CPU's")
+
+
+def train_full_width(smi):
+    """Phase 22 (b): smollm-360m at full width through ``train.run`` (sync,
+    ``TRAIN_STEPS`` pipeline steps of ``TRAIN_BATCH`` x ``TRAIN_SEQ``):
+    tokens/s and ``max_memory_allocated``, the loss finite, the mean loss
+    of the first and of the last ``TRAIN_LOG`` steps; then
+    ``FIXED_STEPS`` steps on one fixed batch through ``coord.build``, each
+    timed by CUDA events (the step ms), whose loss must fall."""
+    import math
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.optim import coord
+    from repro_torch.runtime import train
+
+    cfg = registry.get_config(TRAIN_ARCH)
+    n_params = registry.exact_param_count(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tc = train.TrainConfig(steps=TRAIN_STEPS, log_every=TRAIN_LOG,
+                           seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                           seed=SEED, remat=True, opt=_train_opt())
+    state, summary = train.run(cfg, tc)
+    peak = torch.cuda.max_memory_allocated()
+    hist = summary["history"]
+    means = [h["loss_mean"] * h["step"] for h in hist]
+    first = means[0] / TRAIN_LOG
+    last = (means[-1] - means[-2]) / TRAIN_LOG
+    tok_s = summary["tokens"] / summary["wall_seconds"]
+    print(f"training [{TRAIN_ARCH}, sync, {n_params:,} parameters, bf16 on "
+          f"float32 masters, remat, escrow clip]: {summary['step']} steps of "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens in "
+          f"{summary['wall_seconds']:.3f} s, {tok_s:,.0f} tokens/s; "
+          f"max_memory_allocated {peak / 1e9:.3f} GB; mean loss of steps "
+          f"1-{TRAIN_LOG} {first:.4f}, of the last {TRAIN_LOG} {last:.4f}; "
+          f"grad_norm_last {summary['grad_norm_last']:.4f}; {smi}")
+    if summary["step"] != TRAIN_STEPS or not all(
+            math.isfinite(m) for m in means) or summary["tokens"] != \
+            TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQ:
+        raise AssertionError("training: the run did not take its steps "
+                             "with a finite loss")
+    del state
+
+    setup = coord.build(cfg, coord.CoordConfig(),
+                        _train_opt(lr=1e-3, total_steps=50),
+                        registry.make_loss_fn)
+    batch = Pipeline(DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, SEED),
+                     cfg).next_batch()
+    state = setup.init_fn(SEED)
+    slots, events = [], []
+    for _ in range(FIXED_STEPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        state = setup.step_fn(state, batch)
+        ev[1].record()
+        events.append(ev)
+        slots.append(state.loss_slots.clone())
+    torch.cuda.synchronize()
+    cum = [0.0] + [float(x[0]) for x in slots]
+    losses = [b - a for a, b in zip(cum, cum[1:])]
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    median = statistics.median(step_ms[1:])
+    print(f"training [{TRAIN_ARCH}, fixed batch]: losses "
+          f"{[round(x, 4) for x in losses]}; step ms (CUDA events) median "
+          f"{median:.3f} of steps 2-{FIXED_STEPS}, first {step_ms[0]:.3f}, "
+          f"range {min(step_ms[1:]):.3f}-{max(step_ms[1:]):.3f}; "
+          f"{TRAIN_BATCH * TRAIN_SEQ / median * 1e3:,.0f} tokens/s at the "
+          f"median; {smi}")
+    if not losses[-1] < losses[0] or not all(math.isfinite(x)
+                                             for x in losses):
+        raise AssertionError(f"training: the fixed batch's loss did not "
+                             f"fall: {losses}")
+    del state, setup
+    torch.cuda.empty_cache()
+    return dict(step_ms=median, tok_s=tok_s, peak_gb=peak / 1e9)
+
+
+def train_pods(smi):
+    """Phase 22 (c): smollm-360m at full width on 2 pods, hierarchical,
+    the int8 merge every ``POD_MERGE`` steps, ``POD_STEPS`` steps from the
+    pipeline: the pods' divergence above 0 before each merge and 0 after
+    it; each merge's device ms (CUDA events) and counted bytes."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.optim import coord
+    from repro_torch.txn import collectives
+
+    cfg = registry.get_config(TRAIN_ARCH)
+    setup = coord.build(cfg, coord.CoordConfig(mode="hierarchical",
+                                               merge_every=POD_MERGE,
+                                               compress="int8"),
+                        _train_opt(total_steps=POD_STEPS),
+                        registry.make_loss_fn, n_pods=2)
+    pipe = Pipeline(DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, SEED,
+                               n_shards=2), cfg)
+    state = setup.init_fn(SEED)
+    merges = []
+    for step in range(POD_STEPS):
+        state = setup.step_fn(state, pipe.next_batch())
+        if (step + 1) % POD_MERGE:
+            continue
+        before = _pod_divergence(state)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        with collectives.counted() as stats:
+            ev[0].record()
+            state = setup.merge_fn(state)
+            ev[1].record()
+        torch.cuda.synchronize()
+        after = _pod_divergence(state)
+        merges.append(dict(step=step + 1, before=before, after=after,
+                           ms=ev[0].elapsed_time(ev[1]),
+                           bytes=dict(stats.bytes),
+                           counts=dict(stats.counts)))
+    m = setup.read_metrics(state)
+    for row in merges:
+        print(f"training [2 pods, hierarchical, int8 merge every "
+              f"{POD_MERGE}]: merge after step {row['step']}: divergence "
+              f"{row['before']:.4g} -> {row['after']}; {row['ms']:.3f} ms "
+              f"(CUDA events); counted {row['counts']} {row['bytes']} bytes;"
+              f" {smi}")
+    print(f"training [2 pods]: step {m['step']}, loss_mean "
+          f"{m['loss_mean']:.4f}, tokens {m['tokens']:.0f}; {smi}")
+    if len(merges) != POD_STEPS // POD_MERGE or not all(
+            r["before"] > 0 and math.isfinite(r["before"])
+            and r["after"] == 0 for r in merges):
+        raise AssertionError(f"training [2 pods]: the pods did not diverge "
+                             f"between merges or a merge left them apart: "
+                             f"{merges}")
+    del state, setup
+    torch.cuda.empty_cache()
+    return merges
+
+
+def train_restart(smi):
+    """Phase 22 (d): under ``torch.use_deterministic_algorithms(True)``
+    (the embedding's backward otherwise adds with atomics), a run of
+    ``CKPT_AT`` steps that checkpoints (into a temporary directory under
+    ``build/``) and a restart from it to ``TRAIN_STEPS`` end in the bits
+    of an uninterrupted ``TRAIN_STEPS``-step run; the save's and the
+    restore's host seconds."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs import registry
+    from repro_torch.core import tree as T
+    from repro_torch.runtime import train
+
+    cfg = registry.get_config(TRAIN_ARCH)
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    seconds = {}
+
+    def timed(fn, key):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            seconds[key] = time.perf_counter() - t0
+            return out
+        return call
+
+    save, restore = ckpt.save, ckpt.restore
+    ckpt.save, ckpt.restore = timed(save, "save"), timed(restore, "restore")
+    try:
+        with _deterministic(), tempfile.TemporaryDirectory(dir=build) as d:
+            def tc(steps, ckpt_every):
+                return train.TrainConfig(
+                    steps=steps, log_every=steps, ckpt_every=ckpt_every,
+                    ckpt_dir=d, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                    seed=SEED, remat=True, opt=_train_opt())
+            whole, m_whole = train.run(cfg, tc(TRAIN_STEPS, 0))
+            train.run(cfg, tc(CKPT_AT, CKPT_AT))
+            resumed, m_resumed = train.run(cfg, tc(TRAIN_STEPS, 0),
+                                           restore_from=d)
+            nbytes = sum(os.path.getsize(os.path.join(d, f))
+                         for f in os.listdir(d))
+    finally:
+        ckpt.save, ckpt.restore = save, restore
+    same = all(torch.equal(a, b) for a, b in zip(T.leaves(whole),
+                                                 T.leaves(resumed)))
+    print(f"training restart: checkpoint at step {CKPT_AT} "
+          f"({nbytes / 1e9:.3f} GB on disk), save {seconds['save']:.3f} s, "
+          f"restore {seconds['restore']:.3f} s; resumed to step "
+          f"{m_resumed['step']} == the uninterrupted run bit for bit: "
+          f"{same} (loss_mean {m_resumed['loss_mean']:.6f} / "
+          f"{m_whole['loss_mean']:.6f}); {smi}")
+    if not same or m_resumed["step"] != TRAIN_STEPS:
+        raise AssertionError("training restart: the resumed run differs "
+                             "from the uninterrupted one")
+    del whole, resumed
+    torch.cuda.empty_cache()
+    return seconds
+
+
+def train_pod_simulator(smi):
+    """Phase 22 (e): ``PodSimulator`` on the card, 2 pods of reduced
+    smollm-360m: 2 steps and a merge; pod 1 killed, a step of the
+    survivor, pod 1 recovered from it, a step, a merge: every live pod's
+    parameters finite, divergence 0 after each merge, and the fleet's
+    G-counter counting each token once."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.optim import coord
+    from repro_torch.runtime.failures import PodSimulator
+
+    cfg = registry.get_config(TRAIN_ARCH).reduced()
+    setup = coord.build(cfg, coord.CoordConfig(),
+                        _train_opt(warmup_steps=1, total_steps=50),
+                        registry.make_loss_fn)
+    sim = PodSimulator(setup, 2)
+
+    def batches(t):
+        return [registry.make_train_batch(
+            torch.Generator().manual_seed(100 * t + i), cfg, 2, 16)
+            for i in range(2)]
+
+    sim.step(batches(0))
+    sim.step(batches(1))
+    sim.merge()
+    first = sim.divergence()
+    sim.kill(1)
+    sim.step(batches(2))
+    valid_dead = sim.check_validity()
+    sim.recover(1)
+    sim.step(batches(3))
+    apart = sim.divergence()
+    sim.merge()
+    fleet = sim.fleet_metrics()
+    want = (4 + 3) * 2 * 16
+    print(f"training PodSimulator [2 pods, reduced]: divergence after the "
+          f"first merge {first}, before the last {apart:.4g}, after it "
+          f"{sim.divergence()}; valid {valid_dead} / {sim.check_validity()};"
+          f" fleet tokens {fleet['tokens']:.0f} (each counted once: "
+          f"{want}); steps {[int(s.step) for s in sim.states]}; {smi}")
+    if first != 0 or sim.divergence() != 0 or not apart > 0 or \
+            not (valid_dead and sim.check_validity()) or \
+            fleet["tokens"] != want:
+        raise AssertionError("training PodSimulator: validity, divergence "
+                             "or the fleet's token count is off")
+
+
+def training(smi):
+    """Phase 22: (a)-(e). Training launches none of the six kernels (B5
+    and B6 have no backward, B1-B4 are TPC-C's)."""
+    out = {}
+    t0 = time.perf_counter()
+    train_families_card_against_cpu(smi)
+    out["card_vs_cpu_s"] = time.perf_counter() - t0
+    out.update(train_full_width(smi))
+    out["merges"] = train_pods(smi)
+    out.update(train_restart(smi))
+    train_pod_simulator(smi)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2893,6 +3346,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.escrow_admit import escrow_admit_cuda
     from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.lattice_merge import lattice_merge_cuda
     from repro_torch.kernels.ramp_read import ramp_read_cuda
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda
     from repro_torch.kernels.txn_megastep import txn_megastep_cuda
@@ -3152,6 +3606,18 @@ def main() -> int:
         [timing["flash_attention"]["max_abs_err"]]
         + [r["max_abs_err"] for r in rows])
     print(f"families: phase 21 in {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 22: training, no kernel launched ------------------------------
+    t0 = time.perf_counter()
+    wrappers = (escrow_admit_cuda, txn_megastep_cuda, ramp_read_cuda,
+                flash_attention_cuda, rwkv6_scan_cuda,
+                lattice_merge_cuda)
+    before = [w.launches for w in wrappers]
+    training(smi)
+    if [w.launches for w in wrappers] != before:
+        raise AssertionError("training launched a kernel")
+    print(f"training: phase 22 in {time.perf_counter() - t0:.1f} s, no "
+          f"kernel launched")
     print(f"launches, every main path: {json.dumps(launches)}")
 
     for k in ("ramp_read", "lattice_merge", "flash_attention", "rwkv6_scan"):

@@ -9,13 +9,18 @@ hand-written CUDA kernels, each beside its plain torch version (kernels/):
 escrow admission, the transaction megastep, the fused RAMP read, the
 versioned-table merge with its audit, attention for the dense prefill and
 the RWKV-6 scan for the RWKV prefill. It serves language models
-(models/, configs/, runtime/serve.py, launch/serve.py): the dense and the
-RWKV-6 families, with random weights, through a static-batch server whose
-bookkeeping is coordination-free. Entry points run on the CUDA card unless
-the caller passes ``device="cpu"``.
+(models/, configs/, runtime/serve.py, launch/serve.py): all six families,
+with random weights, through a static-batch server whose bookkeeping is
+coordination-free; and trains them (optim/, data/, runtime/train.py,
+launch/train.py): AdamW with escrow clipping, synchronous or deferred
+data parallelism over pods with a compressed merge, checkpoints and
+restarts, and a pod failure simulator. Entry points run on the CUDA card
+unless the caller passes ``device="cpu"``.
 """
 
 from . import core, kernels, txn
 from .convert import (batch_from_numpy, escrow_from_numpy, params_from_numpy,
-                      state_from_numpy, state_to_numpy, tree_from_numpy)
+                      params_to_numpy, state_from_numpy, state_to_numpy,
+                      train_state_from_numpy, train_state_to_numpy,
+                      tree_from_numpy)
 from .device import resolve_device

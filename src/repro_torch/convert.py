@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from repro_torch.core import lattice
+from repro_torch.core import tree as T
 from repro_torch.core.lattice import HotSetEscrow
 from repro_torch.txn.store import Table
 from repro_torch.txn.tpcc import (NewOrderBatch, OrderStatusBatch,
@@ -122,53 +123,76 @@ def tree_from_numpy(src, device):
     return _tensor(src, device)
 
 
-# the layer stacks of each family's parameter tree: path -> stacked dims
-_STACKS = {("layers",): 1, ("enc_layers",): 1, ("dec_layers",): 1,
-           ("groups", "self"): 2, ("groups", "cross"): 1}
-
-
 def params_from_numpy(tree, cfg, device):
     """A reference model's parameter pytree as numpy arrays (dicts of
     float32 masters, each layer stack's leaves stacked on leading dims), as
     the port's model on ``device`` with the same values: one ``Params``
     group per dict, and each stack an ``nn.ModuleList`` whose entry i takes
-    slice i of every leaf below it. The stacks (``_STACKS``): ``layers``
-    [L] (dense, moe, ssm, hybrid; a moe layer's expert tensors [E, d, f]
-    stay whole in its group), whisper's ``enc_layers`` and ``dec_layers``,
-    and the vlm's ``groups.self`` [G, S] (a list of G lists) and
-    ``groups.cross`` [G]. A stack whose length differs from ``cfg``'s
-    layer count raises."""
-    from repro_torch.models.layers import Params
+    slice i of every leaf below it (``layers.bind``'s unstacking, each
+    slice copied into a tensor of its own). The stacks (``layers.STACKS``):
+    ``layers`` [L] (dense, moe, ssm, hybrid; a moe layer's expert tensors
+    [E, d, f] stay whole in its group), whisper's ``enc_layers`` and
+    ``dec_layers``, and the vlm's ``groups.self`` [G, S] (a list of G
+    lists) and ``groups.cross`` [G]. A stack whose length differs from
+    ``cfg``'s layer count raises. :func:`params_to_numpy` is the
+    inverse."""
+    from repro_torch.models.layers import Params, _length, bind
 
-    def take(node, i):
+    def tensors(node):
         if isinstance(node, dict):
-            return {k: take(v, i) for k, v in node.items()}
-        return np.asarray(node)[i]
-
-    def length(node):
-        while isinstance(node, dict):
-            if not node:
-                return 0
-            node = next(iter(node.values()))
-        return np.asarray(node).shape[0]
-
-    def unstack(node, depth, path):
-        want = {("layers",): cfg.n_layers, ("dec_layers",): cfg.n_layers,
-                ("enc_layers",): cfg.enc_layers}.get(path)
-        if want is not None and length(node) != want:
-            raise ValueError(f"{'.'.join(path)} stacks {length(node)} "
-                             f"layers, the configuration {want}")
-        return nn.ModuleList(
-            unstack(take(node, i), depth - 1, path) if depth > 1
-            else build(take(node, i), path)
-            for i in range(length(node)))
-
-    def build(node, path=()):
-        if isinstance(node, dict):
-            return Params(**{
-                k: unstack(v, _STACKS[path + (k,)], path + (k,))
-                if path + (k,) in _STACKS else build(v, path + (k,))
-                for k, v in node.items()})
+            return {k: tensors(v) for k, v in node.items()}
         return _tensor(np.asarray(node), device, torch.float32)
 
-    return build(tree)
+    def module(node):
+        if isinstance(node, dict):
+            return Params(**{k: module(v) for k, v in node.items()})
+        if isinstance(node, list):
+            return nn.ModuleList(module(v) for v in node)
+        return node.clone()
+
+    tree = tensors(tree)
+    for name, want in (("layers", cfg.n_layers), ("dec_layers", cfg.n_layers),
+                       ("enc_layers", cfg.enc_layers)):
+        if name in tree and _length(tree[name]) != want:
+            raise ValueError(f"{name} stacks {_length(tree[name])} layers, "
+                             f"the configuration {want}")
+    return module(bind(tree))
+
+
+def _numpy(tree):
+    return T.map(lambda x: x.detach().cpu().numpy(), tree)
+
+
+def params_to_numpy(params: nn.Module) -> dict:
+    """The port's model as the reference's parameter pytree of numpy
+    arrays: each layer stack restacked on its leading dims
+    (``layers.stacked``); the inverse of :func:`params_from_numpy`."""
+    from repro_torch.models.layers import stacked
+    return _numpy(stacked(params))
+
+
+def train_state_from_numpy(src, device):
+    """A reference ``TrainState`` as numpy (``jax.device_get`` of it: the
+    parameter tree, the AdamW moments, pod dim included in a deferred
+    mode, the count, step and metric slots) as the port's
+    ``optim.coord.TrainState`` on ``device``, every leaf in its dtype."""
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.optim.coord import TrainState
+
+    def tensors(tree):
+        return T.map(lambda x: _tensor(x, device), tree)
+
+    opt = src.opt
+    return TrainState(tensors(src.params),
+                      AdamWState(tensors(opt.mu), tensors(opt.nu),
+                                 _tensor(opt.count, device)),
+                      *(_tensor(x, device) for x in src[2:]))
+
+
+def train_state_to_numpy(state):
+    """The port's ``TrainState`` as the same NamedTuples of numpy arrays,
+    in the reference's tree layout (the inverse of
+    :func:`train_state_from_numpy`)."""
+    return type(state)(_numpy(state.params),
+                       type(state.opt)(*(_numpy(x) for x in state.opt)),
+                       *(x.detach().cpu().numpy() for x in state[2:]))

@@ -11,9 +11,6 @@
 #   systems.py    — concrete replicated systems per invariant class
 #   planner.py    — CoordinationPlan over runtime state trees
 #   merge.py      — anti-entropy merges of state trees
-#
-# The reference's training_state_specs belongs to the training slice
-# (ROADMAP Queue A item 10) and is not here yet.
 
 from .analyzer import (Confluence, Strategy, Verdict, analyze_application,
                        analyze_transaction, classify, table2)
@@ -23,7 +20,8 @@ from .lattice import (EscrowCounter, GCounter, HotSetEscrow, LWWRegister,
                       get_join, hot_position, tree_join_flat)
 from .merge import converged, merge_many, merge_trees
 from .planner import (CoordClass, CoordinationPlan, PlanEntry, StateSpec,
-                      plan, plan_state, plan_states, serving_state_specs)
+                      plan, plan_state, plan_states, serving_state_specs,
+                      training_state_specs)
 from .txn import Op, OpKind, Transaction, run_valid_sequence
 from .witness import (DiamondResult, ReplicatedSystem,
                       check_confluence_empirically, check_convergence,
@@ -37,7 +35,7 @@ __all__ = [
     "VersionedSlots", "get_bottom", "get_join", "tree_join_flat",
     "converged", "merge_many", "merge_trees",
     "CoordClass", "CoordinationPlan", "PlanEntry", "StateSpec", "plan_state",
-    "plan_states", "serving_state_specs",
+    "plan_states", "serving_state_specs", "training_state_specs",
     "Op", "OpKind", "Transaction", "run_valid_sequence",
     "DiamondResult", "ReplicatedSystem", "check_confluence_empirically",
     "check_convergence", "run_diamond", "search_witness",

@@ -14,10 +14,10 @@ The planner runs the I-confluence analyzer over each spec and classifies it:
   COORDINATION_REQUIRED -> a synchronous collective on the critical path.
 
 The port's copy: ``repro_torch.txn.engine.Engine`` consumes the plan to pick
-its stock regime, and the serving runtime (``repro_torch.runtime.serve``)
-prints its plan from :func:`serving_state_specs`. The training state
-registry of the reference belongs to the training slice and is not here
-yet.
+its stock regime, the serving runtime (``repro_torch.runtime.serve``)
+prints its plan from :func:`serving_state_specs`, and the training runtime
+(``repro_torch.runtime.train``) refuses a configuration its plan from
+:func:`training_state_specs` marks unsafe.
 """
 
 from __future__ import annotations
@@ -153,6 +153,108 @@ def plan(specs: Sequence[StateSpec]) -> CoordinationPlan:
 
 def _inv(name, kind, target="", params=None):
     return Invariant(name, kind, target, None, params or {})
+
+
+def training_state_specs(*, coord_mode: str = "hierarchical",
+                         merge_every: int = 8,
+                         exact_clip: bool = False) -> list[StateSpec]:
+    """State specs for the LM training loop.
+
+    coord_mode:
+      "sync"         -> gradients merge every step (paper-faithful
+                        "serializable" analog: max coordination);
+      "hierarchical" -> intra-pod merge each step, cross-pod merge deferred
+                        ``merge_every`` steps;
+      "local_sgd"    -> fully deferred merge every ``merge_every`` steps.
+    exact_clip: True -> global-norm clipping needs a synchronous all-reduce
+                        (COORDINATION_REQUIRED); False -> escrow clipping.
+    """
+    grad_every = 1 if coord_mode == "sync" else merge_every
+    specs = [
+        StateSpec(
+            "grads", "sum",
+            (Op(OpKind.INCREMENT, "grads"),),
+            (_inv("params_converge", InvariantKind.MATERIALIZED_VIEW, "params",
+                  {"source": "grads"}),),
+            merge_every=grad_every,
+            note="gradient deltas: sum-merge (disjoint per-replica "
+                 "contributions); view invariant 'params reflect all merged "
+                 "grads' is confluent — deferral is a *semantics* knob "
+                 "(staleness), not a correctness one"),
+        StateSpec(
+            "step", "max",
+            (Op(OpKind.INCREMENT, "step"),),
+            (_inv("step_monotone", InvariantKind.GREATER_THAN, "step",
+                  {"threshold": -1}),),
+            merge_every=0,
+            note="monotone counter: max-join, never coordinates"),
+        StateSpec(
+            "metrics.loss_sum", "gcounter",
+            (Op(OpKind.INCREMENT, "metrics.loss_sum"),),
+            (_inv("metrics_reflect_steps", InvariantKind.MATERIALIZED_VIEW,
+                  "metrics", {"source": "step"}),),
+            merge_every=0,
+            note="metrics are G-counters merged at log boundaries only"),
+        StateSpec(
+            "metrics.token_count", "gcounter",
+            (Op(OpKind.INCREMENT, "metrics.token_count"),), (),
+            merge_every=0),
+        StateSpec(
+            "data.cursor", "max",
+            (Op(OpKind.ASSIGN_SOME, "data.cursor"),),
+            (_inv("samples_unique", InvariantKind.UNIQUENESS, "data.cursor"),),
+            merge_every=0,
+            note="replica-namespaced shard cursors: disjoint ranges "
+                 "(paper §5.1 'choose some value')"),
+        StateSpec(
+            "sample_ids", "or",
+            (Op(OpKind.ASSIGN_SOME, "sample_ids"),),
+            (_inv("sample_ids_unique", InvariantKind.UNIQUENESS, "sample_ids"),),
+            merge_every=0),
+        StateSpec(
+            "loss_scale", "min",
+            (Op(OpKind.DECREMENT, "loss_scale"), Op(OpKind.INCREMENT, "loss_scale")),
+            (_inv("no_overflow_consensus", InvariantKind.LESS_THAN, "loss_scale",
+                  {"threshold": "overflow"}),),
+            merge_every=1,
+            note="overflow consensus: increments toward the ceiling are not "
+                 "confluent -> amortized via escrowed growth schedule"),
+        StateSpec(
+            "ckpt.manifest", "versioned",
+            (Op(OpKind.INSERT, "ckpt.manifest"),),
+            (_inv("manifest_complete", InvariantKind.MATERIALIZED_VIEW,
+                  "ckpt.manifest", {"source": "params"}),),
+            merge_every=0,
+            note="checkpoint shard manifests merge as versioned slots"),
+        StateSpec(
+            "ckpt.sequence_id", "max",
+            (Op(OpKind.INSERT, "ckpt.sequence_id"),),
+            (_inv("ckpt_ids_sequential", InvariantKind.AUTO_INCREMENT,
+                  "ckpt.sequence_id"),),
+            merge_every=0,
+            note="sequential checkpoint IDs: the TPC-C district counter "
+                 "analog — deferred commit-time assignment by one assigner"),
+    ]
+    if exact_clip:
+        specs.append(StateSpec(
+            "grad_norm", "sum",
+            (Op(OpKind.UPDATE, "grad_norm"),),
+            (_inv("norm_is_global_l2", InvariantKind.CUSTOM, "grad_norm",
+                  {"semantics": "exact global L2 across all replicas"}),),
+            merge_every=1,
+            note="exact global-norm clip: the invariant references global "
+                 "state (no local rule applies) -> synchronous all-reduce "
+                 "each step"))
+    else:
+        specs.append(StateSpec(
+            "grad_norm", "sum",
+            (Op(OpKind.INCREMENT, "grad_norm"),),
+            (_inv("norm_below_share", InvariantKind.LESS_THAN, "grad_norm",
+                  {"threshold": "clip/replicas", "escrow": True}),),
+            merge_every=0,
+            note="escrow clipping: each replica clips against its share "
+                 "tau/sqrt(R) — hot path local (paper §8)"))
+    return specs
 
 
 def serving_state_specs() -> list[StateSpec]:

@@ -1,8 +1,8 @@
 """State trees: flatten and rebuild nested containers of tensors.
 
-The port's counterpart of the ``jax.tree_util`` calls the merge layer
-makes, with the same leaf order, so a state tree flattens here as it does
-in the reference:
+The port's counterpart of the ``jax.tree_util`` calls the merge layer and
+training make, with the same leaf order, so a state tree flattens here as
+it does in the reference:
 
 * a dict flattens its values in sorted-key order;
 * a list, a tuple and a NamedTuple flatten their items in order;
@@ -103,3 +103,11 @@ def flatten_up_to(treedef: Any, tree: Any) -> list:
 def leaves(tree: Any) -> list:
     """The leaves of ``tree``, in the reference's order."""
     return flatten(tree)[0]
+
+
+def map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """``tree`` with ``fn(leaf, *matching leaves of rest)`` in place of
+    each leaf (the reference's ``jax.tree.map``)."""
+    leaves_, treedef = flatten(tree)
+    others = [flatten_up_to(treedef, t) for t in rest]
+    return unflatten(treedef, [fn(*xs) for xs in zip(leaves_, *others)])

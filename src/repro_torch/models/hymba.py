@@ -15,7 +15,8 @@ normalized outputs averaged — plus a SwiGLU FFN. The port of
 Serving cache = ring KV (window) + SSM state + conv tail, the last two
 updated in place with the ring.
 
-``loss_fn`` belongs to the training slice and is not here yet.
+``loss_fn`` is the cross-entropy of ``forward``'s logits, as the
+reference's.
 """
 
 from __future__ import annotations
@@ -25,8 +26,6 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 from torch import nn
-
-from repro_torch.device import resolve_device
 
 from . import kv_cache as kvc
 from . import layers as L
@@ -151,7 +150,7 @@ def layer_init(gen: torch.Generator, cfg: ModelConfig) -> L.Params:
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> L.Params:
     """Random float32 master weights from a seeded ``torch.Generator`` on
     ``device`` (the card unless ``device`` says otherwise)."""
-    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    gen = L.generator(device, seed)
     params = L.embedding_init(gen, cfg)
     params.layers = nn.ModuleList(layer_init(gen, cfg)
                                   for _ in range(cfg.n_layers))
@@ -180,8 +179,8 @@ def layer_apply(lp: L.Params, x: torch.Tensor, st: SSMState,
 
 
 def forward(params: L.Params, tokens: torch.Tensor, cfg: ModelConfig,
-            use_flash: bool = False, last_only: bool = False
-            ) -> torch.Tensor:
+            use_flash: bool = False, last_only: bool = False,
+            remat: bool = True) -> torch.Tensor:
     B, T_ = tokens.shape
     x = L.embed(params, tokens, cfg)
     positions = torch.arange(T_, device=tokens.device)
@@ -189,12 +188,20 @@ def forward(params: L.Params, tokens: torch.Tensor, cfg: ModelConfig,
     st = SSMState(torch.zeros(B, cfg.d_model, N, device=tokens.device),
                   torch.zeros(B, CONV_K - 1, cfg.d_model,
                               device=tokens.device))
+    apply_one = L.remat(lambda lp, c: layer_apply(lp, c, st, cfg, positions,
+                                                  use_flash)[0], remat)
     for lp in params.layers:
-        x, _ = layer_apply(lp, x, st, cfg, positions, use_flash)
+        x = apply_one(lp, x)
     if last_only:
         x = x[:, -1:]
     x = L.rmsnorm(params.final_norm, x, cfg.norm_eps)
     return L.logits(params, x, cfg)
+
+
+def loss_fn(params: L.Params, batch: dict, cfg: ModelConfig,
+            remat: bool = True) -> torch.Tensor:
+    lg = forward(params, batch["tokens"], cfg, remat=remat)
+    return L.cross_entropy(lg, batch["labels"])
 
 
 # ---------------------------------------------------------------------------

@@ -9,16 +9,25 @@ cast to the activation dtype at each use. Sharding annotations
 
 Attention runs kernel B5 for a prefill when asked (``use_flash``); the
 plain paths (naive and chunked) are its oracle.
+
+Training holds the parameters in the reference's own layout instead: a
+tree of dicts whose layer stacks (``STACKS``) are single tensors with the
+layers on leading dims. :func:`stacked` makes that tree from a model,
+:func:`bind` views it as a model the families' functions take (plain
+tensors, so autograd reaches the stacked leaves), and :func:`remat`
+recomputes a layer in the backward pass, as ``jax.checkpoint`` does.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
+import torch.utils.checkpoint
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 
 from .config import ModelConfig
@@ -45,12 +54,141 @@ class Params(nn.Module):
         return getattr(self, name, None)
 
 
+class View(dict):
+    """A parameter group bound for training: the reference's dict, its
+    entries plain tensors (or groups, or lists of groups where the
+    reference stacks layers) read as attributes, as a :class:`Params`
+    module's are."""
+
+    __slots__ = ()
+
+    def __getattr__(self, name: str):
+        try:
+            return self[name]
+        except KeyError:
+            raise AttributeError(name) from None
+
+
+# the layer stacks of each family's parameter tree: path -> stacked dims
+STACKS = {("layers",): 1, ("enc_layers",): 1, ("dec_layers",): 1,
+          ("groups", "self"): 2, ("groups", "cross"): 1}
+
+
+def stacked(params: nn.Module) -> dict:
+    """The model's parameters in the reference's tree layout: a dict a
+    group, each ``nn.ModuleList`` stack one tensor a leaf with the layers
+    on its leading dim (``torch.stack``, so the tree owns new memory for
+    the stacks; the other leaves are the model's tensors, detached)."""
+    if isinstance(params, nn.ModuleList):
+        kids = [stacked(m) for m in params]
+
+        def stack(*nodes):
+            if isinstance(nodes[0], dict):
+                return {k: stack(*(n[k] for n in nodes)) for k in nodes[0]}
+            return torch.stack(nodes)
+        return stack(*kids)
+    out = {k: v.detach() for k, v in params._parameters.items()}
+    out.update((k, stacked(m)) for k, m in params._modules.items())
+    return out
+
+
+def _split(node, n: int) -> list:
+    """The n slices of a subtree along its leaves' leading dim."""
+    if isinstance(node, dict):
+        parts = [{} for _ in range(n)]
+        for k, v in node.items():
+            for part, x in zip(parts, _split(v, n)):
+                part[k] = x
+        return parts
+    return list(node.unbind(0))
+
+
+def _length(node) -> int:
+    while isinstance(node, dict):
+        if not node:
+            return 0
+        node = next(iter(node.values()))
+    return node.shape[0]
+
+
+def bind(tree: dict, path: tuple = ()) -> View:
+    """The tree (:func:`stacked`'s layout, leaves plain tensors) as a model
+    for the families' functions: each stack a list of :class:`View` (a
+    list of lists for the vlm's ``groups.self``), its entries the stacked
+    leaves' slices (``unbind``, so the gradient of every layer's slice
+    lands in its stacked leaf)."""
+    out = View()
+    for k, v in tree.items():
+        p = path + (k,)
+        if p in STACKS:
+            out[k] = _unstack(v, STACKS[p])
+        elif isinstance(v, dict):
+            out[k] = bind(v, p)
+        else:
+            out[k] = v
+    return out
+
+
+def _unstack(node, depth: int) -> list:
+    parts = _split(node, _length(node))
+    if depth > 1:
+        return [_unstack(p, depth - 1) for p in parts]
+    return [bind(p) for p in parts]
+
+
+def _needs_grad(x) -> bool:
+    if isinstance(x, torch.Tensor):
+        return x.requires_grad
+    if isinstance(x, nn.Module):
+        return any(p.requires_grad for p in x.parameters())
+    if isinstance(x, dict):
+        return any(_needs_grad(v) for v in x.values())
+    if isinstance(x, (list, tuple)):
+        return any(_needs_grad(v) for v in x)
+    return False
+
+
+def remat(fn: Callable, enabled: bool) -> Callable:
+    """``fn``, its activations recomputed in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant) when ``enabled`` and a call
+    has an argument that autograd records (training); else ``fn`` itself,
+    so serving, whose parameters and activations need no gradient, runs
+    the layer directly. Values are the same either way."""
+    if not enabled:
+        return fn
+
+    def run(*args):
+        if not (torch.is_grad_enabled() and _needs_grad(args)):
+            return fn(*args)
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return run
+
+
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+class _MetaGen:
+    """Stands in for a generator on the meta device (shapes, no values)."""
+
+    device = torch.device("meta")
+
+
+def generator(device, seed: int):
+    """A seeded ``torch.Generator`` on ``device`` (the card unless it says
+    otherwise); on the meta device a stand-in, so a model builds as shapes
+    alone."""
+    dev = resolve_device(device)
+    if dev.type == "meta":
+        return _MetaGen()
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
 def normal(gen: torch.Generator, shape, scale: float) -> torch.Tensor:
     """Seeded float32 normals times ``scale``, drawn on ``gen``'s device."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, device="meta")
     return torch.randn(shape, generator=gen, device=gen.device) * scale
 
 
@@ -300,3 +438,11 @@ def logits(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         # float32's min rounds to -inf in bfloat16
         out = out.masked_fill(tail, torch.tensor(NEG).to(out.dtype).item())
     return out
+
+
+def cross_entropy(lg: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy in float32."""
+    lg = lg.float()
+    logz = torch.logsumexp(lg, dim=-1)
+    gold = torch.take_along_dim(lg, labels[..., None].long(), dim=-1)[..., 0]
+    return (logz - gold).mean()

@@ -26,7 +26,8 @@ The decoder's attention is the dense family's (``transformer``). A
 serving prefill (``prefill`` with ``use_flash``) runs kernel B5 once a
 layer on the card.
 
-``loss_fn`` belongs to the training slice and is not here yet.
+``loss_fn`` is the cross-entropy plus the router's load-balancing loss
+summed over the layers, as the reference's.
 """
 
 from __future__ import annotations
@@ -36,8 +37,6 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
-
-from repro_torch.device import resolve_device
 
 from . import kv_cache as kvc
 from . import layers as L
@@ -153,7 +152,7 @@ def layer_init(gen: torch.Generator, cfg: ModelConfig) -> L.Params:
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> L.Params:
     """Random float32 master weights from a seeded ``torch.Generator`` on
     ``device`` (the card unless ``device`` says otherwise)."""
-    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    gen = L.generator(device, seed)
     params = L.embedding_init(gen, cfg)
     params.layers = nn.ModuleList(layer_init(gen, cfg)
                                   for _ in range(cfg.n_layers))
@@ -172,19 +171,27 @@ def layer_apply(lp: L.Params, x: torch.Tensor, cfg: ModelConfig,
 
 
 def forward(params: L.Params, tokens: torch.Tensor, cfg: ModelConfig,
-            use_flash: bool = False, last_only: bool = False
-            ) -> tuple[torch.Tensor, torch.Tensor]:
+            use_flash: bool = False, last_only: bool = False,
+            remat: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits, total aux loss)."""
     x = L.embed(params, tokens, cfg)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
+    apply_one = L.remat(lambda lp, c: layer_apply(lp, c, cfg, positions,
+                                                  use_flash), remat)
     aux = []
     for lp in params.layers:
-        x, a = layer_apply(lp, x, cfg, positions, use_flash)
+        x, a = apply_one(lp, x)
         aux.append(a)
     if last_only:
         x = x[:, -1:]
     x = L.rmsnorm(params.final_norm, x, cfg.norm_eps)
     return L.logits(params, x, cfg), torch.stack(aux).sum()
+
+
+def loss_fn(params: L.Params, batch: dict, cfg: ModelConfig,
+            remat: bool = True) -> torch.Tensor:
+    lg, aux = forward(params, batch["tokens"], cfg, remat=remat)
+    return L.cross_entropy(lg, batch["labels"]) + aux
 
 
 # -- serving: the dense attention cache; the MoE runs on each token's block --

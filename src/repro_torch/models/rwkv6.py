@@ -13,7 +13,8 @@ masked [C, C] product, the state carried between chunks); a prefill with
 ``use_kernel`` runs kernel B6 instead, once per layer. Serving carries
 O(1) state per layer ((N x N per head) + token-shift vectors).
 
-``loss_fn`` belongs to the training slice and is not here yet.
+``loss_fn`` runs the plain chunked form, as the reference's training
+does: kernel B6 has no backward.
 """
 
 from __future__ import annotations
@@ -24,7 +25,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 
 from . import layers as L
@@ -69,7 +69,7 @@ def layer_init(gen: torch.Generator, cfg: ModelConfig) -> L.Params:
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> L.Params:
     """Random float32 master weights from a seeded ``torch.Generator`` on
     ``device`` (the card unless ``device`` says otherwise)."""
-    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    gen = L.generator(device, seed)
     params = L.embedding_init(gen, cfg)
     params.layers = nn.ModuleList(layer_init(gen, cfg)
                                   for _ in range(cfg.n_layers))
@@ -209,31 +209,39 @@ def layer_apply(lp: L.Params, x: torch.Tensor, st: RWKVState,
 
 
 def _stack(params: L.Params, x: torch.Tensor, state: RWKVState,
-           cfg: ModelConfig,
-           use_kernel: bool) -> tuple[torch.Tensor, RWKVState]:
+           cfg: ModelConfig, use_kernel: bool,
+           remat: bool = False) -> tuple[torch.Tensor, RWKVState]:
     """Every layer over x with its slice of the stacked ``state``; returns
     x and the new stacked state."""
+    apply_one = L.remat(lambda lp, c, st: layer_apply(lp, c, st, cfg,
+                                                      use_kernel), remat)
     new = []
     for i, lp in enumerate(params.layers):
-        x, st = layer_apply(lp, x, RWKVState(*(y[i] for y in state)), cfg,
-                            use_kernel)
+        x, st = apply_one(lp, x, RWKVState(*(y[i] for y in state)))
         new.append(st)
     return x, RWKVState(*(torch.stack(ys) for ys in zip(*new)))
 
 
 def forward(params: L.Params, tokens: torch.Tensor, cfg: ModelConfig,
             use_kernel: bool = False, state0: RWKVState | None = None,
-            last_only: bool = False) -> tuple[torch.Tensor, RWKVState]:
+            last_only: bool = False, remat: bool = True
+            ) -> tuple[torch.Tensor, RWKVState]:
     """Logits over ``tokens`` [B, T] from the stacked state ``state0``
     (zeros by default) and the stacked state after them."""
     x = L.embed(params, tokens, cfg)
     if state0 is None:
         state0 = stacked_state(cfg, tokens.shape[0], tokens.device)
-    x, state = _stack(params, x, state0, cfg, use_kernel)
+    x, state = _stack(params, x, state0, cfg, use_kernel, remat)
     if last_only:
         x = x[:, -1:]
     x = L.rmsnorm(params.final_norm, x, cfg.norm_eps)
     return L.logits(params, x, cfg), state
+
+
+def loss_fn(params: L.Params, batch: dict, cfg: ModelConfig,
+            remat: bool = True) -> torch.Tensor:
+    lg, _ = forward(params, batch["tokens"], cfg, remat=remat)
+    return L.cross_entropy(lg, batch["labels"])
 
 
 def decode_step(params: L.Params, state: RWKVState, token: torch.Tensor,

@@ -5,17 +5,20 @@ Covers qwen1.5-32b, smollm-360m, tinyllama-1.1b, minitron-8b; the MoE
 family swaps the FFN (``moe``), and ``hymba``, ``vlm`` and ``whisper``
 reuse its layers and its cached attention. The layers are an
 ``nn.ModuleList`` walked by a Python loop (the reference scans stacked
-parameters).
+parameters); for training the same functions take the reference's
+stacked tree through ``layers.bind``.
 
 API (``init_params``, ``forward`` and ``decode_step`` shared by every
 family, vlm and whisper taking their image or frames beside the tokens;
 ``prefill`` shared with moe):
   init_params(cfg, seed, device)            -> the model (a ``Params``)
   forward(params, tokens, cfg, ...)         -> [B, S, V] logits
+  loss_fn(params, batch, cfg, ...)          -> scalar loss (float32)
   prefill(params, tokens, cfg, ...)         -> (last-token logits, KVCache)
   decode_step(params, cache, token, cfg)    -> (logits, KVCache)
 
-``loss_fn`` belongs to the training slice and is not here yet.
+``forward``'s ``remat`` (default True, as the reference's) recomputes each
+layer in the backward pass (``layers.remat``); it changes no value.
 """
 
 from __future__ import annotations
@@ -24,8 +27,6 @@ from typing import Optional
 
 import torch
 from torch import nn
-
-from repro_torch.device import resolve_device
 
 from . import kv_cache as kvc
 from . import layers as L
@@ -43,7 +44,7 @@ def layer_init(gen: torch.Generator, cfg: ModelConfig) -> L.Params:
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> L.Params:
     """Random float32 master weights from a seeded ``torch.Generator`` on
     ``device`` (the card unless ``device`` says otherwise)."""
-    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    gen = L.generator(device, seed)
     params = L.embedding_init(gen, cfg)
     params.layers = nn.ModuleList(layer_init(gen, cfg)
                                   for _ in range(cfg.n_layers))
@@ -62,15 +63,24 @@ def layer_apply(lp: L.Params, x: torch.Tensor, cfg: ModelConfig,
 
 
 def forward(params: L.Params, tokens: torch.Tensor, cfg: ModelConfig,
-            use_flash: bool = False, last_only: bool = False) -> torch.Tensor:
+            use_flash: bool = False, last_only: bool = False,
+            remat: bool = True) -> torch.Tensor:
     x = L.embed(params, tokens, cfg)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
+    apply_one = L.remat(lambda lp, c: layer_apply(lp, c, cfg, positions,
+                                                  use_flash), remat)
     for lp in params.layers:
-        x = layer_apply(lp, x, cfg, positions, use_flash)
+        x = apply_one(lp, x)
     if last_only:
         x = x[:, -1:]
     x = L.rmsnorm(params.final_norm, x, cfg.norm_eps)
     return L.logits(params, x, cfg)
+
+
+def loss_fn(params: L.Params, batch: dict, cfg: ModelConfig,
+            remat: bool = True) -> torch.Tensor:
+    lg = forward(params, batch["tokens"], cfg, remat=remat)
+    return L.cross_entropy(lg, batch["labels"])
 
 
 # ---------------------------------------------------------------------------

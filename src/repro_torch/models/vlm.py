@@ -11,7 +11,10 @@ The layers come in G groups, each (cross_attn_every - 1) dense self layers
 (``groups.self[g]``) and one gated cross layer (``groups.cross[g]``),
 walked by Python loops where the reference scans the group stack.
 
-``loss_fn`` belongs to the training slice and is not here yet.
+``loss_fn`` is the cross-entropy of ``forward``'s logits, with the
+image embeddings from the batch (``image_embeds``), as the reference's;
+``remat`` recomputes each self layer in the backward pass, as the
+reference's does (its cross layers are not rematerialized).
 """
 
 from __future__ import annotations
@@ -20,8 +23,6 @@ from typing import NamedTuple
 
 import torch
 from torch import nn
-
-from repro_torch.device import resolve_device
 
 from . import kv_cache as kvc
 from . import layers as L
@@ -49,7 +50,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> L.Params:
     """Random float32 master weights from a seeded ``torch.Generator`` on
     ``device`` (the card unless ``device`` says otherwise)."""
     G, S = n_groups(cfg)
-    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    gen = L.generator(device, seed)
     params = L.embedding_init(gen, cfg)
     params.groups = L.Params(
         self=nn.ModuleList(
@@ -92,18 +93,27 @@ def cross_apply(cp: L.Params, x: torch.Tensor,
 
 def forward(params: L.Params, tokens: torch.Tensor,
             image_embeds: torch.Tensor, cfg: ModelConfig,
-            use_flash: bool = False, last_only: bool = False
-            ) -> torch.Tensor:
+            use_flash: bool = False, last_only: bool = False,
+            remat: bool = True) -> torch.Tensor:
     x = L.embed(params, tokens, cfg)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
+    self_one = L.remat(lambda lp, c: T.layer_apply(lp, c, cfg, positions,
+                                                   use_flash), remat)
     for self_layers, cp in zip(params.groups.self, params.groups.cross):
         for lp in self_layers:
-            x = T.layer_apply(lp, x, cfg, positions, use_flash)
+            x = self_one(lp, x)
         x = cross_apply(cp, x, _cross_kv(cp, image_embeds, cfg), cfg)
     if last_only:
         x = x[:, -1:]
     x = L.rmsnorm(params.final_norm, x, cfg.norm_eps)
     return L.logits(params, x, cfg)
+
+
+def loss_fn(params: L.Params, batch: dict, cfg: ModelConfig,
+            remat: bool = True) -> torch.Tensor:
+    lg = forward(params, batch["tokens"], batch["image_embeds"], cfg,
+                 remat=remat)
+    return L.cross_entropy(lg, batch["labels"])
 
 
 # ---------------------------------------------------------------------------

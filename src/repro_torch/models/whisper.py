@@ -15,7 +15,9 @@ The encoder's self-attention runs kernel B5, non-causal, once a layer
 when asked (``use_flash``): the ``Server`` encodes so on the card, where
 the reference's ``encode`` runs plain jnp.
 
-``loss_fn`` belongs to the training slice and is not here yet.
+``loss_fn`` is the cross-entropy of ``forward``'s logits, with the
+frames from the batch (``frames``), as the reference's; ``remat``
+recomputes each encoder and decoder layer in the backward pass.
 """
 
 from __future__ import annotations
@@ -26,8 +28,6 @@ from typing import NamedTuple
 import numpy as np
 import torch
 from torch import nn
-
-from repro_torch.device import resolve_device
 
 from . import kv_cache as kvc
 from . import layers as L
@@ -69,7 +69,7 @@ def dec_layer_init(gen: torch.Generator, cfg: ModelConfig) -> L.Params:
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> L.Params:
     """Random float32 master weights from a seeded ``torch.Generator`` on
     ``device`` (the card unless ``device`` says otherwise)."""
-    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    gen = L.generator(device, seed)
     params = L.embedding_init(gen, cfg)
     params.enc_layers = nn.ModuleList(enc_layer_init(gen, cfg)
                                       for _ in range(cfg.enc_layers))
@@ -81,7 +81,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> L.Params:
 
 
 def encode(params: L.Params, frames: torch.Tensor, cfg: ModelConfig,
-           use_flash: bool = False) -> torch.Tensor:
+           use_flash: bool = False, remat: bool = True) -> torch.Tensor:
     """frames: [B, T_f, d] precomputed frame embeddings (stub frontend).
     With ``use_flash`` each layer's self-attention is one launch of
     kernel B5, non-causal, on the card."""
@@ -89,11 +89,17 @@ def encode(params: L.Params, frames: torch.Tensor, cfg: ModelConfig,
     x = frames + sinusoid(Tf, d, frames.device)[None].to(frames.dtype)
     positions = torch.arange(Tf, device=frames.device)
     eps = cfg.norm_eps
-    for lp in params.enc_layers:
+
+    def block(lp, x):
         x = x + L.attention_apply(lp.attn, L.layernorm(lp.attn_norm, x, eps),
                                   cfg, positions, causal=False,
                                   use_flash=use_flash)
-        x = x + L.mlp_apply(lp.mlp, L.layernorm(lp.mlp_norm, x, eps), "gelu")
+        return x + L.mlp_apply(lp.mlp, L.layernorm(lp.mlp_norm, x, eps),
+                               "gelu")
+
+    block = L.remat(block, remat)
+    for lp in params.enc_layers:
+        x = block(lp, x)
     return L.layernorm(params.enc_norm, x, eps)
 
 
@@ -124,19 +130,26 @@ def _enc_kv(lp: L.Params, enc_out: torch.Tensor, cfg: ModelConfig
 
 def forward(params: L.Params, tokens: torch.Tensor, frames: torch.Tensor,
             cfg: ModelConfig, use_flash: bool = False,
-            last_only: bool = False) -> torch.Tensor:
-    enc_out = encode(params, frames, cfg, use_flash)
+            last_only: bool = False, remat: bool = True) -> torch.Tensor:
+    enc_out = encode(params, frames, cfg, use_flash, remat)
     S = tokens.shape[1]
     x = L.embed(params, tokens, cfg)
     x = x + sinusoid(S, cfg.d_model, x.device)[None].to(x.dtype)
     positions = torch.arange(S, device=tokens.device)
+    block = L.remat(lambda lp, c, e: dec_layer_apply(
+        lp, c, _enc_kv(lp, e, cfg), cfg, positions, use_flash), remat)
     for lp in params.dec_layers:
-        x = dec_layer_apply(lp, x, _enc_kv(lp, enc_out, cfg), cfg, positions,
-                            use_flash)
+        x = block(lp, x, enc_out)
     if last_only:
         x = x[:, -1:]
     x = L.layernorm(params.final_norm, x, cfg.norm_eps)
     return L.logits(params, x, cfg)
+
+
+def loss_fn(params: L.Params, batch: dict, cfg: ModelConfig,
+            remat: bool = True) -> torch.Tensor:
+    lg = forward(params, batch["tokens"], batch["frames"], cfg, remat=remat)
+    return L.cross_entropy(lg, batch["labels"])
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,13 @@
-"""Failure injection and recovery for escrow-regime TPC-C: the port of
-``repro.runtime.failures`` (``EscrowPodSimulator`` and the analytic
-``straggler_step_times``; the training analogue's ``PodSimulator`` belongs
-to the training slice).
+"""Failure injection and recovery: the port of ``repro.runtime.failures``
+(``PodSimulator`` for deferred training, ``EscrowPodSimulator`` for
+escrow-regime TPC-C, and the analytic ``straggler_step_times``).
+
+A training pod that fails stops stepping; the survivors keep stepping
+(transactional availability: progress without the failed peer); the dead
+pod restarts from a survivor's state and the next anti-entropy merge
+reconciles — global I-validity (finite parameters, monotone step) holds
+throughout. The pods are separate ``TrainState`` copies on one device,
+driven through the same single-pod setup.
 
 A TPC-C replica that fails stops serving; the others keep committing,
 since their transactions never needed it; entries bound for it queue; its
@@ -17,12 +23,149 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core import tree as T
 from repro_torch.core.lattice import HotSetEscrow, pack_lease_stamp
 from repro_torch.device import resolve_device
 from repro_torch.txn import tpcc
 from repro_torch.txn.tpcc import RetryState, TPCCState
 
 from .liveness import LeaseMonitor
+
+
+@dataclasses.dataclass
+class PodSimulator:
+    """Simulates N pod replicas on one device: each pod owns a TrainState
+    and steps independently; merge averages parameters (the deferred
+    merge)."""
+
+    setup: object          # optim.coord.TrainSetup of one pod (sync mode)
+    n_pods: int
+    states: list = dataclasses.field(default_factory=list)
+    alive: list = dataclasses.field(default_factory=list)
+    metric_joined: dict = dataclasses.field(default_factory=dict)
+
+    def __post_init__(self):
+        # default_factory (not a shared default, not an unconditional
+        # overwrite): two simulators never alias the same list, and a
+        # caller-provided fleet image survives construction
+        if not self.states:
+            self.states = [self.setup.init_fn(7) for _ in range(self.n_pods)]
+        if not self.alive:
+            self.alive = [True] * self.n_pods
+        # host-side G-counter view of the fleet's metrics: slot i is pod
+        # i's contribution as of its last merge (slotwise max-join — each
+        # pod only ever grows its own slot)
+        if not self.metric_joined:
+            self.metric_joined = {
+                "loss": np.zeros(self.n_pods),
+                "tokens": np.zeros(self.n_pods),
+                "grad_norm": np.zeros(self.n_pods),
+            }
+
+    def step(self, batches: list) -> None:
+        for i in range(self.n_pods):
+            if self.alive[i]:
+                self.states[i] = self.setup.step_fn(self.states[i], batches[i])
+
+    def kill(self, pod: int) -> None:
+        self.alive[pod] = False
+
+    def recover(self, pod: int, from_state=None) -> None:
+        """Restart from a checkpointed/survivor state (elastic restore).
+
+        The recovered pod must NOT inherit the source state's metric slots
+        (that would double-count the survivor's contribution at the next
+        join); it resumes its OWN counter from the last joined value, so
+        nothing merged before the kill is lost and nothing is counted
+        twice."""
+        self.alive[pod] = True
+        src = from_state if from_state is not None else self._survivor_state()
+        state = T.map(torch.clone, src)
+        state = state._replace(
+            loss_slots=torch.full_like(
+                state.loss_slots, self.metric_joined["loss"][pod]),
+            token_slots=torch.full_like(
+                state.token_slots, self.metric_joined["tokens"][pod]),
+            grad_norm_slots=torch.full_like(
+                state.grad_norm_slots, self.metric_joined["grad_norm"][pod]))
+        self.states[pod] = state
+
+    def _survivor_state(self):
+        for i, a in enumerate(self.alive):
+            if a:
+                return self.states[i]
+        raise RuntimeError("no survivors")
+
+    def _join_metrics(self) -> None:
+        """Slotwise max-join of every live pod's metric contribution into
+        the fleet G-counter view (idempotent: slots only grow)."""
+        for i, a in enumerate(self.alive):
+            if not a:
+                continue
+            s = self.states[i]
+            self.metric_joined["loss"][i] = max(
+                self.metric_joined["loss"][i], float(s.loss_slots.sum()))
+            self.metric_joined["tokens"][i] = max(
+                self.metric_joined["tokens"][i], float(s.token_slots.sum()))
+            self.metric_joined["grad_norm"][i] = max(
+                self.metric_joined["grad_norm"][i],
+                float(s.grad_norm_slots.max()))
+
+    def fleet_metrics(self) -> dict:
+        """G-counter read over the fleet: join live pods' current slots in,
+        then sum contributions (dead pods keep their last-merged slot)."""
+        self._join_metrics()
+        return {
+            "loss_sum": float(self.metric_joined["loss"].sum()),
+            "tokens": float(self.metric_joined["tokens"].sum()),
+            "grad_norm_max": float(self.metric_joined["grad_norm"].max()),
+        }
+
+    def merge(self) -> None:
+        """Anti-entropy among live pods: parameter mean, step max-join,
+        metric G-counter joins (slotwise max of per-pod contributions)."""
+        self._join_metrics()
+        live = [self.states[i] for i, a in enumerate(self.alive) if a]
+        if len(live) < 2:
+            return
+        n = len(live)
+        mean_params = T.map(
+            lambda *xs: sum(x.to(torch.float32) for x in xs) / n,
+            *[s.params for s in live])
+        step = torch.max(torch.stack([s.step for s in live]))
+        # each pod gets its OWN copy: replicas never alias storage
+        merged = [s._replace(
+            params=T.map(lambda m, p: m.to(p.dtype).clone(), mean_params,
+                        s.params),
+            step=step.clone()) for s in live]
+        j = 0
+        for i, a in enumerate(self.alive):
+            if a:
+                self.states[i] = merged[j]
+                j += 1
+
+    def check_validity(self) -> bool:
+        """Global I-validity: finite parameters on every live replica."""
+        for i, a in enumerate(self.alive):
+            if not a:
+                continue
+            for leaf in T.leaves(self.states[i].params):
+                if not bool(torch.isfinite(leaf).all()):
+                    return False
+        return True
+
+    def divergence(self) -> float:
+        """Max parameter distance between live replicas (0 after merge)."""
+        live = [self.states[i] for i, a in enumerate(self.alive) if a]
+        if len(live) < 2:
+            return 0.0
+        worst = 0.0
+        base = T.leaves(live[0].params)
+        for other in live[1:]:
+            for a, b in zip(base, T.leaves(other.params)):
+                worst = max(worst, float(
+                    (a.to(torch.float32) - b.to(torch.float32)).abs().max()))
+        return worst
 
 
 @dataclasses.dataclass

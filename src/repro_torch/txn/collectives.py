@@ -1,17 +1,20 @@
 """The operations that cross shards, on one card.
 
 The reference runs one program a device under ``shard_map`` and crosses
-shards with ``all_gather`` and ``psum``; its proof that a path is
-coordination-free reads the compiled HLO for them
+shards with ``all_gather``, ``psum`` and ``pmax``; its proof that a path
+is coordination-free reads the compiled HLO for them
 (``repro.utils.hlo.collective_stats``). The port holds R shards as
 contiguous row blocks of the global tables on one card and runs each
-shard's body on its own block; what crosses shards goes through the two
-functions below, and nothing else does. Each call adds to a count per kind,
-so a path's collectives are counted as it runs:
+shard's body on its own block (training's pods: a leaf's leading dim);
+what crosses shards goes through the functions below, and nothing else
+does. Each call adds to a count per kind, so a path's collectives are
+counted as it runs:
 
 * :func:`all_gather` — the shard-major concatenation of the per-shard
   tensors (an ``all-gather``);
-* :func:`psum` — their sum, in shard order (an ``all-reduce``).
+* :func:`psum` — their sum, in shard order (an ``all-reduce``);
+* :func:`pmax` — their elementwise max (an ``all-reduce`` too: the
+  training merge's shared int8 scale).
 
 :func:`counted` reads the counts of the calls made inside a ``with``
 block as a :class:`CollectiveStats`, the analogue of the reference's
@@ -110,5 +113,14 @@ def psum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
     out = parts[0].clone()
     for p in parts[1:]:
         out += p
+    _count("all-reduce", out.numel() * out.element_size())
+    return out
+
+
+def pmax(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The elementwise max of every shard's tensor."""
+    out = parts[0].clone()
+    for p in parts[1:]:
+        out = torch.maximum(out, p)
     _count("all-reduce", out.numel() * out.element_size())
     return out

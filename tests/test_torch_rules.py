@@ -4,8 +4,9 @@
   anything of the JAX package ``repro``.
 * Importing ``repro_torch`` leaves ``jax`` out of ``sys.modules``.
 * Entry points (the engine, the state and stream builders, the pod
-  simulator) run on the CUDA card unless the caller passes
-  ``device="cpu"``: with no card they raise instead of falling back.
+  simulators, serving and training) run on the CUDA card unless the
+  caller passes ``device="cpu"``: with no card they raise instead of
+  falling back.
 * The kernel modules hold no ``try`` (no path that falls back from a
   kernel to its plain version).
 """
@@ -46,10 +47,15 @@ def _imported_roots(path: Path) -> set[str]:
 def test_port_imports_neither_jax_nor_reference():
     files = _port_files()
     assert len(files) > 10
-    # the observability plane and the serving driver are among them
+    # the observability plane, the serving driver and training are among
+    # them
     assert {PORT / "obs" / f for f in ("__init__.py", "metrics.py",
                                       "ledger.py", "trace.py")} | {
-        PORT / "launch" / "tpcc_serve.py"} <= set(files)
+        PORT / "launch" / "tpcc_serve.py"} | {
+        PORT / d / f for d, f in (
+            ("optim", "adamw.py"), ("optim", "coord.py"),
+            ("optim", "compression.py"), ("data", "pipeline.py"),
+            ("runtime", "train.py"), ("launch", "train.py"))} <= set(files)
     offenders = {str(p.relative_to(ROOT)): sorted(
         _imported_roots(p) & {"jax", "jaxlib", "repro"}) for p in files}
     assert {k: v for k, v in offenders.items() if v} == {}
@@ -61,7 +67,9 @@ def test_importing_port_loads_no_jax():
             " repro_torch.runtime.serve, repro_torch.launch.serve,"
             " repro_torch.runtime, repro_torch.ckpt, repro_torch.txn.recovery,"
             " repro_torch.obs, repro_torch.obs.ledger,"
-            " repro_torch.launch.tpcc_serve;"
+            " repro_torch.launch.tpcc_serve, repro_torch.optim,"
+            " repro_torch.data, repro_torch.runtime.train,"
+            " repro_torch.launch.train;"
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
             "or m.startswith(('jax.', 'repro.'))];"
             "assert not bad, bad")
@@ -119,6 +127,30 @@ def test_serving_entry_points_raise_without_cuda(monkeypatch):
         launch.run(["--arch", "smollm-360m", "--reduced"])
     # asked for explicitly, the CPU is fine
     assert Server(cfg, model, ServeConfig(), device="cpu").device == \
+        torch.device("cpu")
+
+
+def test_training_entry_points_raise_without_cuda(monkeypatch):
+    from repro_torch.configs import registry
+    from repro_torch.launch import train as launch
+    from repro_torch.optim import adamw, coord
+    from repro_torch.runtime import train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = registry.get_config("smollm-360m").reduced()
+    tc = train.TrainConfig(steps=1, seq_len=8, global_batch=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.run(cfg, tc)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        coord.build(cfg, coord.CoordConfig(), adamw.AdamWConfig(),
+                    registry.make_loss_fn)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch.run(["--arch", "smollm-360m", "--reduced", "--steps", "1"])
+    # asked for explicitly, the CPU is fine
+    _, summary = train.run(cfg, tc, device="cpu")
+    assert summary["step"] == 1
+    assert coord.build(cfg, coord.CoordConfig(), adamw.AdamWConfig(),
+                       registry.make_loss_fn, device="cpu").device == \
         torch.device("cpu")
 
 

@@ -5,7 +5,8 @@ replica snapshots, LM serving (all six model families), the dense
 escrow layout, the coordinated 2PC baseline, TPC-C as four replicas on
 one card, their cold-retry ring, crash recovery with self-detecting
 liveness, the fused executor (a chunk of batches as one CUDA graph), the
-observability plane with the TPC-C serving driver, and LM training.
+observability plane with the TPC-C serving driver, LM training, and the
+dry run that traces every step without memory and holds it to the card.
 
     python3 chip_smoke.py
 
@@ -197,7 +198,18 @@ six CUDA kernels of the port from ``src/repro_torch/kernels/csrc`` (one
      uninterrupted 20-step run bit for bit, with the save's and the
      restore's seconds; (e) ``PodSimulator`` on 2 pods, reduced: a kill, a
      survivor's step, the recovery, a merge: valid, divergence 0, each
-     token counted once.
+     token counted once;
+ 23. the dry run (``repro_torch.launch.dryrun``): (a) phase 22's step
+     traced on meta tensors, then run once on the card under
+     ``FlopCounterMode`` and the dry run's op counter: FLOPs and the ops
+     kind by kind equal, the traced peak within ``DRY_PEAK_TOL`` of
+     ``max_memory_allocated`` less what earlier phases still hold; (b) the same for a prefill batch of
+     smollm-360m through B5 and of rwkv6-3b through B6, the kernels'
+     counted operations equal to their shape-only routes', and the ops
+     of the ``Server``'s decode step; (c) ``--arch tpcc`` at its defaults
+     (512 spec-scale warehouses on 4 shards, the audit run on the card);
+     (d) ``DRY_CELLS`` on 1 and 2 pods, the sweep's host time; (e) a line
+     a cell: fits, GB a card, TFLOP and ops a step.
 
 The deployment is TPC-C at the specification's per-warehouse cardinalities
 (TPC-C standard specification, clause 4.3.3.1: 10 districts, 3000 customers
@@ -217,8 +229,8 @@ its text context of 448 as the KV capacity).
 
 Launch counters are set to 0 just before each main path (phases 3-4, 7,
 8, 10, 11, 12, 14, 15, each run of 16, 17, 18, 19 and 20, and each model
-and the prefill of 21) and read just after; phase 22 launches no kernel,
-so the counts read before and after it must be equal. The second-to-last line of output is the kernels' JSON record;
+and the prefill of 21, and 23) and read just after; phase 22 launches no
+kernel, so the counts read before and after it must be equal. The second-to-last line of output is the kernels' JSON record;
 the last line is the device record. Any failure exits non-zero; so does
 a machine without a CUDA device.
 """
@@ -889,13 +901,14 @@ def attention_row(q, k, v, causal):
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     operations)
 
     B, S, H, hd = q.shape
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     nbytes = _nbytes(q, k, v, q)
     # QK^T and PV: j <= i under causal masking, every j otherwise
-    ops = 4 * hd * B * H * (S * (S + 1) // 2 if causal else S * S)
+    ops = operations(B, S, H, hd, causal)
     bound, by = _bound(nbytes, ops, str(q.dtype)[6:])
     return dict(
         shape=[B, S, H, k.shape[2], hd], causal=causal, bytes=nbytes,
@@ -993,7 +1006,7 @@ def scan_check_and_time(out):
     """Phase 12's kernel row: B6 against its plain version on every problem,
     then both timed on the main problem, and its bound."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda
+    from repro_torch.kernels.rwkv6_scan import operations, rwkv6_scan_cuda
 
     err = 0.0
     problems = scan_problems(out)
@@ -1013,7 +1026,7 @@ def scan_check_and_time(out):
     _, r, k, v, w, u, s0 = problems[0]
     B, T, H, hd = r.shape
     nbytes = _nbytes(r, k, v, w, u, s0, r, s0)
-    ops = scan_ops(B, T, H, hd)
+    ops = operations(B, T, H, hd)
     bound, by = _bound(nbytes, ops, "float32")
     row = dict(max_abs_err=err, shape=[B, T, H, hd], bytes=nbytes, ops=ops,
                ms=_time_ms(lambda: rwkv6_scan_cuda(r, k, v, w, u, s0), 20),
@@ -1022,18 +1035,6 @@ def scan_check_and_time(out):
                library_ms=None, bound_ms=bound, bound_by=by)
     print(f"timing [rwkv6_scan, main problem] {json.dumps(row)}")
     return row
-
-
-def scan_ops(B, T, H, hd):
-    """The float32 operations the WKV scan needs: the least, over chunk
-    sizes C, of the chunked form's count a token and head. Across chunks
-    r.S and the state update k^T.v take 2 hd^2 each and the state's decay
-    hd^2 / C; within a chunk the causal half of the C x C scores and their
-    product with v take 2 (C + 1) hd; the decay scalings take 3 hd. C = 1
-    is the per-token recurrence, 5 hd^2 + 7 hd."""
-    per_token = min(4 * hd * hd + hd * hd / C + 2 * (C + 1) * hd + 3 * hd
-                    for C in range(1, T + 1))
-    return int(B * H * T * per_token)
 
 
 def card_against_cpu():
@@ -3335,6 +3336,261 @@ def training(smi):
     return out
 
 
+# phase 23: the dry run (repro_torch.launch.dryrun): each step traced on
+# meta tensors (no memory, no launch), then, for (a) and (b), run on the
+# card under the same counters, which must agree with the trace.
+DRY_PEAK_TOL = 0.10       # (a): traced peak vs the step's own on the card
+PREFILL_SHAPE = (8, 467)  # (b): phases 11-12's first prefill batch (B, S)
+DRY_SHARDS = 4            # (c): phase 16's deployment
+# (d): the full sweep traces about 1.6 M ops (the rwkv6 and hymba chunk
+# loops at 4k and 32k tokens), several minutes of host time at some 200 us
+# an op, so the card runs every shape of smollm-360m and one cell of each
+# other family, on 1 and 2 pods
+DRY_CELLS = [("smollm-360m", s) for s in
+             ("train_4k", "prefill_32k", "decode_32k", "long_500k")] + [
+    ("olmoe-1b-7b", "decode_32k"), ("rwkv6-3b", "prefill_32k"),
+    ("hymba-1.5b", "long_500k"), ("llama-3.2-vision-11b", "decode_32k"),
+    ("whisper-tiny", "train_4k")]
+
+
+def _dry_line(tag, rec, smi):
+    m = rec["memory"]
+    print(f"dry run [{tag}]: peak {m['peak_bytes'] / 1e9:.3f} GB (arguments "
+          f"{m['argument_bytes'] / 1e9:.3f} GB), "
+          f"{rec['cost']['flops'] / 1e12:.4f} TFLOP, {rec['ops']['total']} "
+          f"ops, collectives {rec['collectives']['describe']}; traced in "
+          f"{rec['trace_seconds']:.3f} s; {smi}")
+
+
+def _dry_held(tag, traced, ran, kernel=None):
+    """(a), (b): the card's FLOPs, ops (kind by kind) and, for a kernel,
+    its counted operations equal the trace's."""
+    bad = []
+    if traced["cost"] != ran["cost"]:
+        bad.append("FLOPs")
+    if traced["ops"]["kinds"] != ran["ops"]["kinds"]:
+        bad.append("ops")
+    if kernel is not None and not traced["cost"]["by_op"].get(kernel):
+        bad.append(f"no {kernel} operations")
+    if bad:
+        raise AssertionError(f"dry run [{tag}]: the card disagrees with "
+                             f"the trace on {bad}: traced {traced['cost']}"
+                             f", card {ran['cost']}; ops the trace has "
+                             f"over the card "
+                             f"{_counter(traced) - _counter(ran)}, the card "
+                             f"over the trace "
+                             f"{_counter(ran) - _counter(traced)}")
+
+
+def _counter(rec):
+    from collections import Counter
+    return Counter(rec["ops"]["kinds"])
+
+
+def _card_run(fn, args, traced):
+    """``fn(*args)`` on the card under the dry run's counters, after one
+    warm-up call, from a reset peak: (record, ``max_memory_allocated``,
+    the part of it earlier phases still hold, the step's own peak). The
+    step's own peak is ``max_memory_allocated`` less what was allocated
+    before the call and is not among its arguments (whose bytes are the
+    trace's ``peak_bytes - temp_bytes``): what the trace predicts."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch import dryrun
+
+    fn(*args)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    rec, out = dryrun.trace(fn, args)
+    torch.cuda.synchronize()
+    del out
+    peak = torch.cuda.max_memory_allocated()
+    other = before - (traced["memory"]["peak_bytes"]
+                      - traced["memory"]["temp_bytes"])
+    return rec, peak, other, peak - other
+
+
+def dry_train_step(smi):
+    """Phase 23 (a): phase 22's step (smollm-360m, sync, 8 x 512, remat,
+    bf16 on float32 masters, escrow clip) traced, then run on the card:
+    FLOPs and ops equal, the traced peak within ``DRY_PEAK_TOL`` of the
+    step's own peak on the card (``max_memory_allocated`` less what
+    earlier phases still hold, :func:`_card_run`)."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun
+    from repro_torch.models.config import ShapeConfig
+
+    cfg = registry.get_config(TRAIN_ARCH)
+    shape = ShapeConfig("phase 22", TRAIN_SEQ, TRAIN_BATCH, "train")
+    traced = dryrun.trace_train(cfg, shape, 1)
+    _dry_line(f"{TRAIN_ARCH}, train {TRAIN_BATCH} x {TRAIN_SEQ}", traced,
+              smi)
+    setup = dryrun.train_setup(cfg, device="cuda")
+    state = setup.init_fn(SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    batch = registry.make_train_batch(gen, cfg, TRAIN_BATCH, TRAIN_SEQ)
+    ran, peak, other, own = _card_run(setup.step_fn, (state, batch),
+                                      traced)
+    _dry_held("train step", traced, ran)
+    want = traced["memory"]["peak_bytes"]
+    gap = (want - own) / own
+    print(f"dry run [{TRAIN_ARCH}, train step on the card]: "
+          f"{ran['cost']['flops'] / 1e12:.4f} TFLOP and {ran['ops']['total']}"
+          f" ops, equal to the trace; max_memory_allocated {peak:,} B, "
+          f"{other:,} B of it held by earlier phases, so the step's own "
+          f"peak {own:,} B against the traced {want:,} B ({gap:+.2%}); "
+          f"{smi}")
+    if abs(gap) > DRY_PEAK_TOL:
+        raise AssertionError(f"dry run: the traced peak is {gap:+.2%} off "
+                             f"the card's")
+    del state, batch, setup
+    torch.cuda.empty_cache()
+    return dict(flops=traced["cost"]["flops"], ops=traced["ops"]["total"],
+                peak=want, max_memory_allocated=peak, gap=gap)
+
+
+def dry_prefill(arch, kernel, smi):
+    """Phase 23 (b): a prefill batch of ``PREFILL_SHAPE`` through B5 or B6,
+    traced (the shape-only route) and run on the card (the kernel): FLOPs,
+    ops and the kernel's counted operations equal. Returns the card's
+    launches."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.core import tree as T
+    from repro_torch.launch import dryrun
+    from repro_torch.models import layers as L
+
+    cfg = registry.get_config(arch)
+    B, S = PREFILL_SHAPE
+    step = dryrun.prefill_step(cfg)
+    tokens = torch.empty((B, S), dtype=torch.int32, device="meta")
+    traced, _ = dryrun.trace(step, (dryrun.serving_params_abs(cfg),
+                                    {"tokens": tokens}))
+    _dry_line(f"{arch}, prefill {B} x {S}", traced, smi)
+    dt = L.dtype_of(cfg)
+    params = T.map(lambda x: x.to(dt) if x.is_floating_point() else x,
+                   L.stacked(registry.init_params(cfg, SEED, "cuda")))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                     device="cuda", dtype=torch.int32)}
+    launches = kernel.launches
+    ran, peak, other, own = _card_run(step, (params, batch), traced)
+    name = f"repro_torch.{kernel.__name__[:-5]}"
+    _dry_held(f"{arch} prefill", traced, ran, name)
+    n = kernel.launches - launches
+    print(f"dry run [{arch}, prefill on the card]: {n} {kernel.__name__} "
+          f"launches (one a layer a call, warm-up included), "
+          f"{ran['cost']['by_op'][name]:,} kernel operations a call equal "
+          f"to the shape-only route's, {ran['ops']['total']} ops; traced "
+          f"peak {traced['memory']['peak_bytes']:,} B, the step's own on "
+          f"the card {own:,} B (max_memory_allocated {peak:,} B, {other:,}"
+          f" B of it held by earlier phases); {smi}")
+    if n != 2 * cfg.n_layers:
+        raise AssertionError(f"dry run: {n} launches of {kernel.__name__}")
+    del params
+    torch.cuda.empty_cache()
+    return n
+
+
+def dry_server_decode(smi):
+    """Phase 23 (b): the ops of one decode step of the ``Server``'s own
+    model (float32 masters cast at each use) at phases 11-12's batch and
+    capacity, traced: the count a captured decode step (ROADMAP item 13)
+    would replay."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun
+    from repro_torch.models.config import ShapeConfig
+
+    for arch in ("smollm-360m", "rwkv6-3b"):
+        cfg = registry.get_config(arch)
+        cache, token = registry.decode_input_specs(
+            cfg, ShapeConfig("serve", 2048, SERVE_BATCH, "decode"))
+        rec, _ = dryrun.trace(registry.make_decode_fn(cfg), (
+            registry.init_params(cfg, SEED, "meta"), cache, token))
+        print(f"dry run [{arch}, the Server's decode step, batch "
+              f"{SERVE_BATCH}, capacity 2048]: {rec['ops']['total']} ops "
+              f"({rec['ops']['top']}), {rec['cost']['flops'] / 1e12:.4f} "
+              f"TFLOP; {smi}")
+
+
+def dry_sweep(smi):
+    """Phase 23 (d)-(e): ``DRY_CELLS`` traced at full width on 1 and 2
+    pods, the wall time, and a line a cell."""
+    import torch
+
+    from repro_torch.launch import dryrun
+
+    hbm = dryrun.hbm_bytes(torch.device("cuda"), None)
+    t0 = time.perf_counter()
+    cells = [dryrun.run_cell(arch, shape, pods, hbm)
+             for pods in (1, 2) for arch, shape in DRY_CELLS]
+    wall = time.perf_counter() - t0
+    for c in cells:
+        tag = f"{c['arch']} {c['shape']} pods={c['pods']}"
+        if not c["ok"]:
+            raise AssertionError(f"dry run [{tag}]: {c['error']}")
+        if c.get("skipped"):
+            print(f"dry run cell [{tag}]: skipped, {c['reason']}")
+            continue
+        print(f"dry run cell [{tag}]: fits={c['fits']} "
+              f"{c['memory']['peak_bytes'] / 1e9:.3f} GB a card, "
+              f"{c['cost']['flops'] / 1e12:.4f} TFLOP a step, "
+              f"{c['ops']['total']} ops a step, collectives "
+              f"{c['collectives']['describe']}")
+    print(f"dry run sweep: {len(cells)} cells in {wall:.1f} s (host), "
+          f"against {hbm / 2 ** 30:.2f} GiB; {smi}")
+    return wall
+
+
+def dry_run(smi):
+    """Phase 23: (a) the training step, (b) the B5 and B6 prefills and
+    the Server's decode step, (c)
+    ``--arch tpcc`` on ``DRY_SHARDS`` shards, (d)-(e) the sweep. Returns
+    the launches of the card runs, by kernel."""
+    from repro_torch.kernels.escrow_admit import escrow_admit_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ramp_read import ramp_read_cuda
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda
+    from repro_torch.kernels.txn_megastep import txn_megastep_cuda
+    from repro_torch.launch import dryrun
+
+    wrappers = dict(escrow_admit=escrow_admit_cuda,
+                    txn_megastep=txn_megastep_cuda, ramp_read=ramp_read_cuda,
+                    flash_attention=flash_attention_cuda,
+                    rwkv6_scan=rwkv6_scan_cuda)
+    for w in wrappers.values():
+        w.launches = 0
+    dry_train_step(smi)
+    dry_prefill("smollm-360m", flash_attention_cuda, smi)
+    dry_prefill("rwkv6-3b", rwkv6_scan_cuda, smi)
+    dry_server_decode(smi)
+    t0 = time.perf_counter()
+    cell = dryrun.tpcc_cell(DRY_SHARDS, "cuda")
+    if not cell["ok"]:
+        raise AssertionError(f"dry run [tpcc]: {cell['error']}")
+    paths = [k for k, v in cell.items() if isinstance(v, dict) and "run" in v]
+    print(f"dry run [tpcc, {cell['warehouses']} spec-scale warehouses, "
+          f"{DRY_SHARDS} shards]: {len(paths)} paths traced, none but the "
+          f"refresh calls a collective (refresh "
+          f"{cell['escrow_refresh']['collectives']['describe']}); peak "
+          f"{cell['peak_bytes'] / 1e9:.3f} GB; sparse escrow "
+          f"{cell['escrow_layout']['reduction_vs_dense']:.1f}x under dense; "
+          f"walk {cell['walk']}; ledger hot collectives "
+          f"{cell['obs_ledger']['hot_collectives']}; audit "
+          f"{cell['escrow_audit']} in {time.perf_counter() - t0:.1f} s; "
+          f"{smi}")
+    dry_sweep(smi)
+    return {k: w.launches for k, w in wrappers.items()}
+
+
 def main() -> int:
     import torch
 
@@ -3618,6 +3874,14 @@ def main() -> int:
         raise AssertionError("training launched a kernel")
     print(f"training: phase 22 in {time.perf_counter() - t0:.1f} s, no "
           f"kernel launched")
+
+    print(f"launches, phases 1-22: {json.dumps(launches)}")
+
+    # -- phase 23: the dry run, launch counts from 0 -------------------------
+    t0 = time.perf_counter()
+    for k, n in dry_run(smi).items():
+        launches[k] += n
+    print(f"dry run: phase 23 in {time.perf_counter() - t0:.1f} s")
     print(f"launches, every main path: {json.dumps(launches)}")
 
     for k in ("ramp_read", "lattice_merge", "flash_attention", "rwkv6_scan"):

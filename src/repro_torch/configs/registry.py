@@ -10,6 +10,8 @@ Training takes the parameters in the reference's tree layout
 (``layers.stacked``): ``make_loss_fn``'s loss, ``abstract_params`` (meta
 tensors) and the exact counts work on that tree. Input specs are meta
 tensors; a concrete batch is drawn on an explicit ``torch.Generator``.
+``cell_supported`` and ``decode_input_specs`` serve the dry run
+(``repro_torch.launch.dryrun``).
 """
 
 from __future__ import annotations
@@ -21,8 +23,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import tree as T
-from repro_torch.models import (hymba, moe, rwkv6, transformer, vlm,
-                                whisper)
+from repro_torch.models import (hymba, kv_cache, moe, rwkv6, transformer,
+                                vlm, whisper)
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig, ShapeConfig
 
@@ -68,6 +70,23 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None):
 
 
 # ---------------------------------------------------------------------------
+# Shape/cell applicability
+# ---------------------------------------------------------------------------
+
+
+def cell_supported(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Is (arch x shape) runnable? Returns (ok, reason-if-not): the
+    reference's verdicts and reasons."""
+    if shape.kind == "long_decode" and not cfg.supports_long_context:
+        return False, ("pure full-attention arch: 512k decode requires a "
+                       "sub-quadratic/bounded-state path (DESIGN.md "
+                       "§Arch-applicability)")
+    if shape.kind in ("decode", "long_decode") and not cfg.supports_decode:
+        return False, "encoder-only arch has no decode step"
+    return True, ""
+
+
+# ---------------------------------------------------------------------------
 # Training: input specs, batches, the loss, abstract parameters
 # ---------------------------------------------------------------------------
 
@@ -84,6 +103,26 @@ def train_input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
     if cfg.family == "audio":
         batch["frames"] = f((B, cfg.n_frames, cfg.d_model), L.dtype_of(cfg))
     return batch
+
+
+def decode_input_specs(cfg: ModelConfig, shape: ShapeConfig) -> tuple:
+    """``(cache, token)`` of a decode step at ``shape`` as meta tensors,
+    the family's cache leaf for leaf the reference's: the KV cache
+    (capacity ``seq_len``), rwkv6's stacked state, hymba's ring and SSM
+    state, the vlm's and whisper's caches with their cross K/V. The KV
+    cache's ``pos`` is a host int (0), where the reference's is an int32
+    scalar."""
+    B, S = shape.global_batch, shape.seq_len
+    token = torch.empty((B,), dtype=torch.int32, device="meta")
+    if cfg.family == "ssm":
+        return rwkv6.stacked_state(cfg, B, "meta"), token
+    if cfg.family == "hybrid":
+        return hymba.make_cache(cfg, B, "meta"), token
+    if cfg.family == "vlm":
+        return vlm.make_cache(cfg, B, S, "meta"), token
+    if cfg.family == "audio":
+        return whisper.make_cache(cfg, B, S, "meta"), token
+    return kv_cache.make_cache(cfg, cfg.n_layers, B, S, "meta"), token
 
 
 def make_train_batch(gen: torch.Generator, cfg: ModelConfig, batch: int,

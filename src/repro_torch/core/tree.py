@@ -28,47 +28,51 @@ def flatten(tree: Any, is_leaf: Callable[[Any], bool] | None = None
     """``(leaves, treedef)``: the leaves in the reference's order, and the
     structure :func:`unflatten` rebuilds from them."""
     leaves: list = []
+    return leaves, _walk(tree, leaves, is_leaf)
 
-    def walk(x):
-        if is_leaf is not None and is_leaf(x):
-            leaves.append(x)
-            return _LEAF
-        if x is None:
-            return _NONE
-        if isinstance(x, dict):
-            keys = tuple(sorted(x))
-            return (dict, keys, tuple(walk(x[k]) for k in keys))
-        if isinstance(x, (list, tuple)):
-            return (type(x), None, tuple(walk(v) for v in x))
-        if hasattr(x, "tree_flatten") and hasattr(x, "tree_unflatten"):
-            children, aux = x.tree_flatten()
-            return (type(x), aux, tuple(walk(c) for c in children))
+
+# The walks are module functions, not closures: a recursive closure is a
+# reference cycle that would keep its leaves (tensors) alive until the
+# garbage collector runs.
+def _walk(x, leaves: list, is_leaf):
+    if is_leaf is not None and is_leaf(x):
         leaves.append(x)
         return _LEAF
-
-    return leaves, walk(tree)
+    if x is None:
+        return _NONE
+    if isinstance(x, dict):
+        keys = tuple(sorted(x))
+        return (dict, keys, tuple(_walk(x[k], leaves, is_leaf)
+                                  for k in keys))
+    if isinstance(x, (list, tuple)):
+        return (type(x), None, tuple(_walk(v, leaves, is_leaf) for v in x))
+    if hasattr(x, "tree_flatten") and hasattr(x, "tree_unflatten"):
+        children, aux = x.tree_flatten()
+        return (type(x), aux, tuple(_walk(c, leaves, is_leaf)
+                                    for c in children))
+    leaves.append(x)
+    return _LEAF
 
 
 def unflatten(treedef: Any, leaves) -> Any:
     """The tree of ``treedef`` with ``leaves`` in place of its leaves."""
-    it = iter(leaves)
+    return _build(treedef, iter(leaves))
 
-    def build(d):
-        if d is _LEAF:
-            return next(it)
-        if d is _NONE:
-            return None
-        kind, aux, children = d
-        vals = [build(c) for c in children]
-        if kind is dict:
-            return dict(zip(aux, vals))
-        if hasattr(kind, "_fields"):
-            return kind(*vals)
-        if kind in (list, tuple):
-            return kind(vals)
-        return kind.tree_unflatten(aux, vals)
 
-    return build(treedef)
+def _build(d, it):
+    if d is _LEAF:
+        return next(it)
+    if d is _NONE:
+        return None
+    kind, aux, children = d
+    vals = [_build(c, it) for c in children]
+    if kind is dict:
+        return dict(zip(aux, vals))
+    if hasattr(kind, "_fields"):
+        return kind(*vals)
+    if kind in (list, tuple):
+        return kind(vals)
+    return kind.tree_unflatten(aux, vals)
 
 
 def flatten_up_to(treedef: Any, tree: Any) -> list:
@@ -76,28 +80,28 @@ def flatten_up_to(treedef: Any, tree: Any) -> list:
     reference's ``treedef.flatten_up_to``); raises where the structures
     differ."""
     out: list = []
-
-    def walk(d, x):
-        if d is _LEAF:
-            out.append(x)
-            return
-        if d is _NONE:
-            return
-        kind, aux, children = d
-        if kind is dict:
-            xs = [x[k] for k in aux]
-        elif issubclass(kind, (list, tuple)):
-            xs = list(x)
-        else:
-            xs = list(x.tree_flatten()[0])
-        if len(xs) != len(children):
-            raise ValueError(f"tree structure mismatch at {kind.__name__}: "
-                             f"{len(children)} vs {len(xs)} children")
-        for c, v in zip(children, xs):
-            walk(c, v)
-
-    walk(treedef, tree)
+    _walk_up_to(treedef, tree, out)
     return out
+
+
+def _walk_up_to(d, x, out: list) -> None:
+    if d is _LEAF:
+        out.append(x)
+        return
+    if d is _NONE:
+        return
+    kind, aux, children = d
+    if kind is dict:
+        xs = [x[k] for k in aux]
+    elif issubclass(kind, (list, tuple)):
+        xs = list(x)
+    else:
+        xs = list(x.tree_flatten()[0])
+    if len(xs) != len(children):
+        raise ValueError(f"tree structure mismatch at {kind.__name__}: "
+                         f"{len(children)} vs {len(xs)} children")
+    for c, v in zip(children, xs):
+        _walk_up_to(c, v, out)
 
 
 def leaves(tree: Any) -> list:

@@ -6,6 +6,14 @@ by a hash of the source, the shared ``csrc/*.cuh`` headers and the flags,
 so an edited source or header rebuilds and an
 unchanged one loads at once. Nothing is built when a module is imported:
 the first launch (or :func:`build_all`) builds.
+
+A tensor without data (meta, or fake under ``FakeTensorMode``) takes a
+kernel's shape-only route: the wrapper checks it as it would check a CUDA
+tensor, allocates the kernel's outputs (shapes and dtypes, no memory) and
+returns them, building and launching nothing. Both routes mark the
+launch to the dispatch modes in force (:func:`launch_marker`), so
+``FlopCounterMode`` adds the kernel's operations and the dry run's op
+counter one op, the same on a fake trace and on the card.
 """
 
 from __future__ import annotations
@@ -16,6 +24,12 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Callable
+
+import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.utils._python_dispatch import is_in_torch_dispatch_mode
+from torch.utils.flop_counter import register_flop_formula
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -99,9 +113,50 @@ def check(name: str, err: int) -> None:
 
 def check_tensor(x, name: str, dtype, shape) -> None:
     """Raise unless ``x`` is a contiguous CUDA tensor of ``dtype`` and
-    ``shape``: what a kernel's raw pointer arguments assume."""
-    if x.device.type != "cuda" or x.dtype != dtype or \
+    ``shape``: what a kernel's raw pointer arguments assume (a meta tensor
+    passes too: it takes the shape-only route, :func:`shape_only`)."""
+    if x.device.type not in ("cuda", "meta") or x.dtype != dtype or \
             tuple(x.shape) != tuple(shape) or not x.is_contiguous():
         raise ValueError(f"{name}: want a contiguous CUDA {dtype} tensor of "
                          f"shape {tuple(shape)}, got {x.dtype} "
                          f"{tuple(x.shape)} on {x.device}")
+
+
+def takes_kernel(x) -> bool:
+    """Whether an entry of ``ops.py`` sends ``x`` to the kernel's wrapper
+    (a CUDA tensor, real or fake, or a meta tensor) rather than to the
+    plain version (a CPU tensor)."""
+    return x.is_cuda or x.is_meta
+
+
+def shape_only(x) -> bool:
+    """Whether ``x`` has no data (meta, or fake under ``FakeTensorMode``):
+    a wrapper given one returns the kernel's outputs without building or
+    launching it."""
+    return x.is_meta or isinstance(x, FakeTensor)
+
+
+def launch_marker(name: str, operations: Callable[..., int]
+                  ) -> Callable[..., None]:
+    """Register ``repro_torch::<name>(Tensor x, int[] dims) -> ()``, an op
+    that computes nothing and stands for one launch of kernel ``name`` to
+    the dispatch modes: ``FlopCounterMode`` adds ``operations(*dims)`` for
+    it, an op counter counts it once. Returns ``mark(x, *dims)``, which a
+    wrapper calls before its launch and on its shape-only route alike; it
+    calls the op only under a dispatch mode, so a launch outside one pays
+    nothing for it."""
+    op = torch.library.custom_op(f"repro_torch::{name}", _nothing,
+                                 mutates_args=(),
+                                 schema="(Tensor x, int[] dims) -> ()")
+    op.register_fake(_nothing)
+    register_flop_formula(getattr(torch.ops.repro_torch, name))(
+        lambda x_shape, dims, *_, **__: operations(*dims))
+
+    def mark(x, *dims: int) -> None:
+        if is_in_torch_dispatch_mode():
+            op(x, list(dims))
+    return mark
+
+
+def _nothing(x, dims) -> None:
+    return None

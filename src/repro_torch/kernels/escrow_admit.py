@@ -17,6 +17,10 @@ so the serial walk over the tile touches no global memory; each tile's
 cells are written back before the next is gathered, so the tiles equal
 one walk. T comes from the shared memory a block may use: the main path's
 B = 256, L = 15 is one tile.
+
+On a tensor without data the wrapper takes its shape-only route
+(``build.shape_only``). The walk is integer work: it counts no operation
+to ``FlopCounterMode``.
 """
 
 from __future__ import annotations
@@ -34,6 +38,8 @@ from . import build
 # its own)
 WALK_THREADS = 1024
 WALK_SMEM_BUDGET = 200 * 1024
+
+_mark = build.launch_marker("escrow_admit", lambda B, L: 0)
 
 
 def walk_table_size(lines: int) -> int:
@@ -146,7 +152,8 @@ def escrow_admit_cuda(avail0, slot, qty, line_valid, fast, res_idx, n_res
     vector the caller no longer needs (the engine builds a fresh one every
     batch). Any ``B``: the walk runs in tiles of :func:`walk_shape`.
     Launches on the current stream without synchronising;
-    ``escrow_admit_cuda.launches`` counts the launches."""
+    ``escrow_admit_cuda.launches`` counts the launches. A tensor without
+    data returns the outputs unlaunched (``build.shape_only``)."""
     B, L = slot.shape
     A = avail0.shape[0]
     if L > 32:
@@ -162,6 +169,9 @@ def escrow_admit_cuda(avail0, slot, qty, line_valid, fast, res_idx, n_res
             (n_res, "n_res", torch.int32, (1,))):
         build.check_tensor(x, name, dtype, shape)
     committed = torch.empty_like(fast)   # the kernel starts it as fast
+    _mark(avail0, B, L)
+    if build.shape_only(avail0):
+        return committed, avail0
     fn = build.load("escrow_admit", [ctypes.c_void_p] * 8
                     + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     err = fn(n_res.data_ptr(), res_idx.data_ptr(), slot.data_ptr(),

@@ -26,6 +26,10 @@ Tolerance against the plain version: the kernel sums the scores and the
 weighted values in another order, takes the softmax online and (bf16)
 rounds P, so the two agree to the reference's own tolerances (2e-5 in
 float32, 2e-2 in bfloat16), not bit for bit.
+
+On a tensor without data the wrapper takes its shape-only route
+(``build.shape_only``); both routes count :func:`operations` to
+``FlopCounterMode``.
 """
 
 from __future__ import annotations
@@ -41,6 +45,16 @@ _KIND = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = {torch.float32: "float32", torch.bfloat16: "tensor_core"}
 
 
+def operations(B: int, S: int, H: int, hd: int, causal: int) -> int:
+    """The multiply-adds' operations of Q K^T and P V, two a product: over
+    the causal half (j <= i, the masked entries skipped) or every (i, j)
+    pair."""
+    return 4 * hd * B * H * (S * (S + 1) // 2 if causal else S * S)
+
+
+_mark = build.launch_marker("flash_attention", operations)
+
+
 def flash_attention_cuda(q, k, v, causal: bool = True) -> torch.Tensor:
     """Attention on the card, one launch of ``csrc/flash_attention.cu``.
 
@@ -50,7 +64,8 @@ def flash_attention_cuda(q, k, v, causal: bool = True) -> torch.Tensor:
     q's dtype. Launches on the current stream without synchronising;
     ``flash_attention_cuda.launches`` counts the launches and
     ``flash_attention_cuda.route_launches`` those of each route (module
-    note)."""
+    note). A tensor without data returns ``out`` unlaunched
+    (``build.shape_only``)."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
     if q.dtype not in _KIND:
@@ -59,10 +74,11 @@ def flash_attention_cuda(q, k, v, causal: bool = True) -> torch.Tensor:
     if hd not in HEAD_DIMS or KV < 1 or H % KV:
         raise ValueError(f"flash_attention kernel: hd={hd} (want one of "
                          f"{HEAD_DIMS}), H={H}, KV={KV} (H a multiple)")
+    shape_only = build.shape_only(q)
     for x, name, shape in ((q, "q", (B, S, H, hd)), (k, "k", (B, S, KV, hd)),
                            (v, "v", (B, S, KV, hd))):
         build.check_tensor(x, name, q.dtype, shape)
-        if x.data_ptr() % 16:
+        if not shape_only and x.data_ptr() % 16:
             raise ValueError(f"flash_attention: {name} is not 16-byte "
                              f"aligned")
     out = torch.empty_like(q)
@@ -70,6 +86,9 @@ def flash_attention_cuda(q, k, v, causal: bool = True) -> torch.Tensor:
         return out
     if B * H > 65535:
         raise ValueError(f"flash_attention kernel: B * H = {B * H} > 65535")
+    _mark(q, B, S, H, hd, int(causal))
+    if shape_only:
+        return out
     fn = build.load("flash_attention", [ctypes.c_void_p] * 4
                     + [ctypes.c_int] * 6
                     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])

@@ -2,17 +2,20 @@
 
 Each entry sends the problem where its tensors lie: a CPU tensor goes to
 the plain torch version, a CUDA tensor to the hand-written kernel. There
-is no other path. The two admission entries run the contention gate as
-torch ops first; on the card their kernels update ``avail0`` in place, so
-callers pass a vector they no longer need (the engine builds a fresh one
-every batch).
+is no other path. A tensor without data (meta, or fake under
+``FakeTensorMode``) goes to the kernel's wrapper too, which returns the
+kernel's outputs without building or launching it (``build.shape_only``);
+B4's entry keeps to the CPU/CUDA split: no traced path reaches it. The
+two admission entries run the contention gate as torch ops first; on the
+card their kernels update ``avail0`` in place, so callers pass a vector
+they no longer need (the engine builds a fresh one every batch).
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import ref
+from . import build, ref
 from .escrow_admit import (contention_gate, escrow_admit_cuda, residual_fcfs,
                            residual_order, settle_fast)
 from .flash_attention import flash_attention_cuda
@@ -36,7 +39,8 @@ def escrow_admit(avail0, slot, qty, line_valid
     """
     fast, _, _ = contention_gate(avail0, slot, qty, line_valid)
     res_idx, n_res = residual_order(fast)
-    walk = escrow_admit_cuda if avail0.is_cuda else residual_fcfs
+    walk = escrow_admit_cuda if build.takes_kernel(avail0) \
+        else residual_fcfs
     committed, avail = walk(avail0, slot, qty, line_valid, fast, res_idx,
                             n_res)
     return committed, settle_fast(avail, slot, qty, line_valid, fast)
@@ -51,7 +55,8 @@ def txn_megastep(avail0, slot, qty, line_valid, key_local, cell_local,
     on the CPU its plain version (``txn_megastep_plain``) runs."""
     fast, _, _ = contention_gate(avail0, slot, qty, line_valid)
     res_idx, n_res = residual_order(fast)
-    mega = txn_megastep_cuda if avail0.is_cuda else txn_megastep_plain
+    mega = txn_megastep_cuda if build.takes_kernel(avail0) \
+        else txn_megastep_plain
     return mega(avail0, slot, qty, line_valid, fast, res_idx, n_res,
                 key_local, cell_local, local_line, remote_line, ramp_ts,
                 price_row, n_keys=n_keys, n_cells=n_cells)
@@ -65,7 +70,7 @@ def ramp_read_select(req_ts, nlines, ol_ts, ol_vis, ol_prep, amount, i_id
 
     Returns (present, amount_sel, i_id_sel, amount_sum, lines_read,
     repaired)."""
-    read = ramp_read_cuda if ol_ts.is_cuda else ramp_read_plain
+    read = ramp_read_cuda if build.takes_kernel(ol_ts) else ramp_read_plain
     return read(req_ts, nlines, ol_ts, ol_vis, ol_prep, amount, i_id)
 
 
@@ -88,7 +93,8 @@ def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
     float32 cores), which takes any S (the reference's wrapper
     halves its blocks until they divide S); on the CPU its plain version
     (``ref.flash_attention_plain``)."""
-    attend = flash_attention_cuda if q.is_cuda else ref.flash_attention_plain
+    attend = flash_attention_cuda if build.takes_kernel(q) \
+        else ref.flash_attention_plain
     return attend(q, k, v, causal=causal)
 
 
@@ -97,5 +103,5 @@ def rwkv6_scan(r, k, v, w, u, s0) -> tuple[torch.Tensor, torch.Tensor]:
     kernel (``rwkv6_scan_cuda``, the chunked form), which takes any T (the
     reference's wrapper shrinks its chunk to a divisor of T); on the CPU
     its plain version (``ref.rwkv6_scan_plain``)."""
-    scan = rwkv6_scan_cuda if r.is_cuda else ref.rwkv6_scan_plain
+    scan = rwkv6_scan_cuda if build.takes_kernel(r) else ref.rwkv6_scan_plain
     return scan(r, k, v, w, u, s0)

@@ -11,6 +11,10 @@ sets through it (``txn/ramp.apply_order_status``).
 Bit-exactness: every output but ``amount_sum`` is a mask, a selection or
 an integer count; ``amount_sum`` adds the selected amounts in line order
 from 0 in the kernel and in the plain version alike (``ref.sum_lines``).
+
+On a tensor without data the wrapper takes its shape-only route
+(``build.shape_only``); both routes count :func:`operations` to
+``FlopCounterMode``.
 """
 
 from __future__ import annotations
@@ -22,6 +26,15 @@ import torch
 from . import build, ref
 
 MAX_LINES = 32   # the kernel's shared-memory tile holds at most 32 lines
+
+
+def operations(R: int, L: int) -> int:
+    """The float32 operations of the read: ``amount_sum``'s adds, one a
+    line slot (the rest is masks and integer counts)."""
+    return R * L
+
+
+_mark = build.launch_marker("ramp_read", operations)
 
 
 def ramp_read_plain(req_ts, nlines, ol_ts, ol_vis, ol_prep, amount, i_id):
@@ -40,7 +53,9 @@ def ramp_read_cuda(req_ts, nlines, ol_ts, ol_vis, ol_prep, amount, i_id):
     Returns (present [R, L] bool, amount_sel [R, L] float32, i_id_sel
     [R, L] int32 (-1 where absent), amount_sum [R] float32, lines_read [R]
     int32, repaired [R] int32). Launches on the current stream without
-    synchronising; ``ramp_read_cuda.launches`` counts the launches."""
+    synchronising; ``ramp_read_cuda.launches`` counts the launches. A
+    tensor without data returns the outputs unlaunched
+    (``build.shape_only``)."""
     R, L = ol_ts.shape
     if L > MAX_LINES:
         raise ValueError(f"ramp_read kernel holds at most {MAX_LINES} lines "
@@ -62,6 +77,9 @@ def ramp_read_cuda(req_ts, nlines, ol_ts, ol_vis, ol_prep, amount, i_id):
            torch.empty((R,), dtype=torch.int32, device=dev),
            torch.empty((R,), dtype=torch.int32, device=dev))
     if R == 0:
+        return out
+    _mark(ol_ts, R, L)
+    if build.shape_only(ol_ts):
         return out
     fn = build.load("ramp_read", [ctypes.c_void_p] * 13
                     + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p])

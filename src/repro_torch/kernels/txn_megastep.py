@@ -21,6 +21,10 @@ batch order; the slabs are integer sums, exact in any order (``s_ytd`` is
 float32 but its addends are integers far below 2**24, where float32 sums
 are exact in any association); the stamps are the same elementwise
 formulas.
+
+On a tensor without data the wrapper takes its shape-only route
+(``build.shape_only``); both routes count :func:`operations` to
+``FlopCounterMode``.
 """
 
 from __future__ import annotations
@@ -32,6 +36,15 @@ import torch
 
 from . import build
 from .escrow_admit import residual_fcfs, settle_fast, walk_shape
+
+
+def operations(B: int, L: int) -> int:
+    """The float32 operations of phases 2-4: the ``amount`` products
+    ``price x qty``, one a line slot (the rest is integer work)."""
+    return B * L
+
+
+_mark = build.launch_marker("txn_megastep", operations)
 
 
 class MegastepOut(NamedTuple):
@@ -123,7 +136,8 @@ def txn_megastep_cuda(avail0, slot, qty, line_valid, fast, res_idx, n_res,
     batch). Any ``B``; ``d_count`` and the dense slabs are zeroed here, in
     one fill at the HBM rate, and are views into it. Launches on the
     current stream without synchronising; ``txn_megastep_cuda.launches``
-    counts the launches."""
+    counts the launches. A tensor without data returns the outputs
+    unlaunched (``build.shape_only``)."""
     B, L = slot.shape
     A = avail0.shape[0]
     if L > 32:
@@ -154,6 +168,9 @@ def txn_megastep_cuda(avail0, slot, qty, line_valid, fast, res_idx, n_res,
         stock_dec=slabs[0], stock_cnt=slabs[1], stock_rcnt=slabs[2],
         ol_ts=torch.empty((B, L), **i32),
         amount=torch.empty((B, L), dtype=torch.float32, device=dev))
+    _mark(avail0, B, L)
+    if build.shape_only(avail0):
+        return out
     fn = build.load("txn_megastep", [ctypes.c_void_p] * 21
                     + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     ins = (n_res, res_idx, slot, qty, line_valid, fast, key_local,

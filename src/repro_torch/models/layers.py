@@ -33,6 +33,12 @@ from repro_torch.kernels import ops as kops
 from .config import ModelConfig
 
 NEG = torch.finfo(torch.float32).min   # the reference's mask fill, not -inf
+# NEG cast to each floating dtype, as the reference casts the fill: float32's
+# min rounds to -inf in bfloat16 and float16 (Python floats, so a masked
+# fill reads no tensor)
+_NEG_AS = {dt: torch.tensor(NEG).to(dt).item()
+           for dt in (torch.float32, torch.bfloat16, torch.float16,
+                      torch.float64)}
 
 
 class Params(nn.Module):
@@ -160,8 +166,12 @@ def remat(fn: Callable, enabled: bool) -> Callable:
     def run(*args):
         if not (torch.is_grad_enabled() and _needs_grad(args)):
             return fn(*args)
+        # no layer draws random numbers: no RNG state to keep for the
+        # recompute (saving it would read the card's generator, which a
+        # fake trace without a card cannot)
         return torch.utils.checkpoint.checkpoint(fn, *args,
-                                                 use_reentrant=False)
+                                                 use_reentrant=False,
+                                                 preserve_rng_state=False)
     return run
 
 
@@ -434,9 +444,7 @@ def logits(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     vp = out.shape[-1]
     if vp != cfg.vocab:  # mask padded vocab tail (never predicted/summed)
         tail = torch.arange(vp, device=out.device) >= cfg.vocab
-        # the fill cast to the logits' dtype, as the reference casts it:
-        # float32's min rounds to -inf in bfloat16
-        out = out.masked_fill(tail, torch.tensor(NEG).to(out.dtype).item())
+        out = out.masked_fill(tail, _NEG_AS[out.dtype])
     return out
 
 

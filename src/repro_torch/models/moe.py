@@ -77,7 +77,10 @@ def _dispatch_ffn(p: L.Params, xf: torch.Tensor, cfg: ModelConfig, cap: int
         gate_vals.sum(-1, keepdim=True), 1e-9)
 
     # aux loss (Switch): E * sum_e fraction_e * prob_e
-    fraction = F.one_hot(experts[:, 0], E).float().mean(0)
+    # (a comparison where the reference takes one_hot: the same 0/1
+    # values, and no host read of the expert ids on any device)
+    fraction = (experts[:, :1] == torch.arange(E, device=dev)).float(
+    ).mean(0)
     aux = E * torch.sum(fraction * probs.mean(0)) * cfg.router_aux_coef
 
     # sort-based dispatch
@@ -112,7 +115,10 @@ def _dispatch_ffn(p: L.Params, xf: torch.Tensor, cfg: ModelConfig, cap: int
     for j in range(k):
         out = out + mine[:, j]
 
-    load = torch.bincount(flat_expert, minlength=E).to(torch.int32)
+    # assignments an expert, as a fixed-length integer count (exact in
+    # any order; unlike bincount it has a meta kernel, so it traces)
+    load = torch.zeros((E,), dtype=torch.int32, device=dev).index_add_(
+        0, flat_expert, torch.ones_like(flat_expert, dtype=torch.int32))
     return out, aux, load, (~keep).sum().to(torch.int32)
 
 

@@ -180,7 +180,9 @@ def time_mix_apply(p: L.Params, x: torch.Tensor, state_s: torch.Tensor,
     B, T, d = x.shape
     rh, kh, vh, wh, g, new_prev = time_mix_inputs(p, x, shift_prev, cfg)
     if use_kernel and T > 1:
-        out, s_new = kops.rwkv6_scan(rh, kh, vh, wh, p.bonus_u, state_s)
+        # the kernel takes u in float32 (bf16 serving weights cast it)
+        out, s_new = kops.rwkv6_scan(rh, kh, vh, wh, p.bonus_u.float(),
+                                     state_s)
     else:
         out, s_new = wkv_chunked(rh, kh, vh, wh, p.bonus_u, state_s,
                                  chunk=cfg.ssm_chunk if T > 1 else 1)

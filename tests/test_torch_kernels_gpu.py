@@ -874,3 +874,112 @@ def test_item_access_scatter_on_the_card_matches_the_cpu(cuda):
         assert np.array_equal(host.item_access.slots.numpy(), plain)
     assert torch.equal(out["cpu"].latency.counts,
                        out[str(cuda)].latency.counts)
+
+
+# ---------------------------------------------------------------------------
+# The shape-only routes (the dry run's) against the kernels
+# ---------------------------------------------------------------------------
+
+
+def _route_problem(kernel, device):
+    """A small seeded problem for ``kernel``'s wrapper on ``device``:
+    (wrapper, arguments, keywords, the operations the kernel states)."""
+    from repro_torch.kernels import flash_attention, rwkv6_scan
+    from repro_torch.kernels import ramp_read as rr
+    from repro_torch.kernels import txn_megastep as tm
+
+    g = torch.Generator().manual_seed(0)
+    B, L, A = 12, 15, 40
+    ints = lambda hi, *s: torch.randint(0, hi, s, generator=g,  # noqa: E731
+                                        dtype=torch.int32)
+    if kernel in ("escrow_admit", "txn_megastep"):
+        avail0, slot, qty = ints(30, A), ints(A, B, L), ints(9, B, L) + 1
+        lv = torch.rand((B, L), generator=g) < 0.7
+        fast = contention_gate(avail0, slot, qty, lv)[0]
+        args = [avail0, slot, qty, lv, fast, *residual_order(fast)]
+        if kernel == "escrow_admit":
+            return escrow_admit_cuda, [x.to(device) for x in args], {}, 0
+        local = torch.rand((B, L), generator=g) < 0.8
+        args += [ints(5, B), ints(30, B, L), local, ~local & lv, ints(99, B),
+                 torch.rand((B, L), generator=g)]
+        return (txn_megastep_cuda, [x.to(device) for x in args],
+                dict(n_keys=5, n_cells=30), tm.operations(B, L))
+    if kernel == "ramp_read":
+        R = 9
+        args = [ints(4, R), ints(11, R) + 5, ints(4, R, L),
+                torch.rand((R, L), generator=g) < 0.6,
+                torch.rand((R, L), generator=g) < 0.5,
+                torch.rand((R, L), generator=g), ints(99, R, L)]
+        return (ramp_read_cuda, [x.to(device) for x in args], {},
+                rr.operations(R, L))
+    if kernel == "flash_attention":
+        B, S, H, KV, hd = 2, 13, 6, 2, 64
+        args = [torch.randn((B, S, h, hd), generator=g).to(torch.bfloat16)
+                for h in (H, KV, KV)]
+        return (flash_attention.flash_attention_cuda,
+                [x.to(device) for x in args], dict(causal=True),
+                flash_attention.operations(B, S, H, hd, True))
+    B, T, H, hd = 2, 21, 3, 64
+    n = lambda *s: torch.randn(s, generator=g)  # noqa: E731
+    args = [n(B, T, H, hd), n(B, T, H, hd), n(B, T, H, hd),
+            torch.rand((B, T, H, hd), generator=g) * 0.5 + 0.4, n(H, hd),
+            n(B, H, hd, hd)]
+    return (rwkv6_scan.rwkv6_scan_cuda, [x.to(device) for x in args], {},
+            rwkv6_scan.operations(B, T, H, hd))
+
+
+@pytest.mark.parametrize("kernel", ["escrow_admit", "txn_megastep",
+                                    "ramp_read", "flash_attention",
+                                    "rwkv6_scan"])
+def test_shape_only_route_matches_the_kernel(cuda, kernel):
+    """On fake CUDA tensors (FakeTensorMode) the wrapper returns the real
+    launch's shapes and dtypes and counts the operations FlopCounterMode
+    reports around the real launch, launching nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    wrapper, args, kw, n_ops = _route_problem(kernel, cuda)
+    with FlopCounterMode(display=False) as fc:
+        real = wrapper(*args, **kw)
+    torch.cuda.synchronize()
+    real = real if isinstance(real, tuple) else (real,)
+    launches = wrapper.launches
+    with FakeTensorMode():
+        fake_args = [torch.empty(x.shape, dtype=x.dtype, device="cuda")
+                     for x in args]
+        with FlopCounterMode(display=False) as fake_fc:
+            fake = wrapper(*fake_args, **kw)
+    fake = fake if isinstance(fake, tuple) else (fake,)
+    assert [(x.shape, x.dtype) for x in fake] == \
+        [(x.shape, x.dtype) for x in real]
+    assert fake_fc.get_flop_counts() == fc.get_flop_counts()
+    assert fc.get_total_flops() == n_ops
+    assert wrapper.launches == launches
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "rwkv6-3b"])
+def test_prefill_trace_matches_the_card(cuda, arch):
+    """A reduced prefill traced on meta tensors (B5/B6 on their shape-only
+    routes) and run on the card (the kernels) under the dry run's
+    counters: FLOPs, the kernels' operations and the ops kind by kind
+    equal."""
+    from repro_torch.configs import registry
+    from repro_torch.core import tree as T
+    from repro_torch.launch import dryrun
+    from repro_torch.models import layers as L
+
+    cfg = registry.get_config(arch).reduced()
+    step = dryrun.prefill_step(cfg)
+    tokens = torch.empty((2, 33), dtype=torch.int32, device="meta")
+    traced, _ = dryrun.trace(step, (dryrun.serving_params_abs(cfg),
+                                    {"tokens": tokens}))
+    dt = L.dtype_of(cfg)
+    params = T.map(lambda x: x.to(dt) if x.is_floating_point() else x,
+                   L.stacked(registry.init_params(cfg, 0, "cuda")))
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 33), device="cuda",
+                                     dtype=torch.int32)}
+    ran, _ = dryrun.trace(step, (params, batch))
+    assert traced["cost"] == ran["cost"]
+    assert traced["ops"]["kinds"] == ran["ops"]["kinds"]
+    kernel = "flash_attention" if cfg.family == "dense" else "rwkv6_scan"
+    assert traced["cost"]["by_op"][f"repro_torch.{kernel}"] > 0

@@ -9,7 +9,8 @@ Three pillars, one session object:
   equals recording inline, and the loop launches nothing more;
 * :mod:`repro_torch.obs.trace` — the phase tracer (span wall clocks and
   ``torch.profiler.record_function`` ranges around megastep,
-  outbox-drain, share-refresh and audit);
+  outbox-drain, share-refresh and audit, and on the card around the
+  fused executor's call set-up and close; spans nest);
 * :mod:`repro_torch.obs.ledger` — the coordination ledger (per-phase
   collective calls and bytes on the wire, counted by
   ``txn.collectives.counted()``; hot phases budgeted at zero).

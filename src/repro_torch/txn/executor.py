@@ -27,10 +27,12 @@ under ``shard_map``, so the host enters once a chunk. Here:
   escrow's own tensors (``Engine.refresh_escrow``).
 * **observability** — ``run(obs=)`` and ``run_escrow(obs=)`` take a
   ``repro_torch.obs.ObsSession``: tracer spans around each replay and
-  each drain, and the metrics lattice fed after the wall clock stops from
-  the chunks' own batches. The merge regime captures the metrics-off
-  graph; the escrow regime's also writes each step's commit mask into an
-  :class:`OkBuffer`, the reference's scan ``ys``.
+  each drain (on the card also around the call's set-up, its captures
+  and its close, outside the wall clock), and the metrics lattice fed
+  after the wall clock stops from the chunks' own batches. The merge
+  regime captures the metrics-off graph; the escrow regime's also writes
+  each step's commit mask into an :class:`OkBuffer`, the reference's scan
+  ``ys``.
 
 A graph captures no host read. Payment's ordered adds take their round
 count as a static argument (``MixChunk.pay_rounds``, read from the stream
@@ -180,7 +182,7 @@ class _Graph:
     escrow), whose addresses it holds."""
 
     def __init__(self, ex, T: int, chunk: MixChunk, rounds: int, live,
-                 oks: OkBuffer | None = None):
+                 oks: OkBuffer | None, span):
         dev = ex.engine.device
         self.T = T
         self.live = live
@@ -189,17 +191,22 @@ class _Graph:
         self.graph = torch.cuda.CUDAGraph()
         self.replays = 0
         before = launch_counts()
-        synchronize(dev)
+        with span("capture-wait"):
+            synchronize(dev)
         # a graph freed in the middle of a capture (an earlier run's, held
         # in a reference cycle until the collector finds it) invalidates
         # the capture: collect first, and hold the collector off meanwhile
-        gc.collect()
-        torch.cuda.empty_cache()
+        with span("collect"):
+            gc.collect()
+        with span("cache-release"):
+            torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(self.graph):
+            # the span opens before the capture begins and closes after it
+            # ends (and the graph is instantiated)
+            with span("graph-record"), torch.cuda.graph(self.graph):
                 ex._chunk(*live, self.inputs, oks)
         finally:
             if collecting:
@@ -372,13 +379,10 @@ class FusedExecutor:
             raise RuntimeError("capture before the admission probe was "
                                "resolved: the warm-up resolves it")
 
-    def _prepare(self, state, ring, counters, esc, chunks, warmup,
-                 oks: OkBuffer | None = None):
-        """The run's graphs, one a distinct chunk length (the card), after
-        the warm-up; {} on the CPU."""
-        self.last_run = {}
-        if warmup:
-            self._warm(state, ring, counters, esc, chunks[0], oks)
+    def _prepare(self, state, ring, counters, esc, chunks,
+                 oks: OkBuffer | None = None, span=contextlib.nullcontext):
+        """The run's graphs, one a distinct chunk length, each captured in
+        a "capture" span (the card); {} on the CPU."""
         if not self._cuda:
             return {}
         graphs = {}
@@ -389,7 +393,8 @@ class FusedExecutor:
             # the stream's deepest Payment of this length: extra rounds
             # are no-ops, so one graph serves every chunk
             rounds = max(c.pay_rounds for c in same)
-            graphs[T] = _Graph(self, T, same[0], rounds, live, oks)
+            with span("capture"):
+                graphs[T] = _Graph(self, T, same[0], rounds, live, oks, span)
         self.last_run = dict(graphs=graphs, chunk_ms=[], drain_ms=[])
         return graphs
 
@@ -426,7 +431,9 @@ class FusedExecutor:
         capture on these buffers and one replay; on the CPU eagerly."""
         self._check_len(chunk)
         live = (state, ring, counters, esc)
-        self._execute(self._prepare(*live, [chunk], True), *live, chunk)
+        self.last_run = {}
+        self._warm(*live, chunk)
+        self._execute(self._prepare(*live, [chunk]), *live, chunk)
         self._finish_events()
 
     def megastep(self, state: TPCCState, ring: OutboxRing,
@@ -519,20 +526,31 @@ class FusedExecutor:
         the metrics-off graph, and after the wall clock stops each chunk's
         record and one counter fold run from the chunks' own batches; the
         joins commute, so that equals recording inline, and the timed loop
-        launches nothing more."""
-        if self._escrow:
-            raise RuntimeError("escrow-regime executor: use run_escrow")
-        for c in chunks:
-            self._check_len(c)
-        eng = self.engine
-        state = eng.shard_state(state)
-        ring = self.init_ring(chunks[0].neworder.w.shape[1] // eng.n_shards)
-        counters = self.init_counters()
-        metrics, span = self._obs(obs)
-        if warmup:
-            self._warm_drain(state, ring, None)
-        graphs = self._prepare(state, ring, counters, None, chunks, warmup)
-        synchronize(eng.device)
+        launches nothing more. On the card the call's set-up and close are
+        spans too (:meth:`_spans`)."""
+        span, call_span = self._spans(obs)
+        with call_span("call-setup"):
+            if self._escrow:
+                raise RuntimeError("escrow-regime executor: use run_escrow")
+            for c in chunks:
+                self._check_len(c)
+            eng = self.engine
+            with call_span("release"):
+                self.last_run = {}
+            with call_span("buffers"):
+                state = eng.shard_state(state)
+                ring = self.init_ring(
+                    chunks[0].neworder.w.shape[1] // eng.n_shards)
+                counters = self.init_counters()
+                metrics = self._metrics(obs)
+            if warmup:
+                with call_span("warm"):
+                    self._warm_drain(state, ring, None)
+                    self._warm(state, ring, counters, None, chunks[0])
+            graphs = self._prepare(state, ring, counters, None, chunks,
+                                   span=call_span)
+            with call_span("loop-wait"):
+                synchronize(eng.device)
         t0 = time.perf_counter()
         for chunk in chunks:
             with span("megastep"):
@@ -545,20 +563,33 @@ class FusedExecutor:
                     obs.maybe_sync(ring)
         synchronize(eng.device)
         wall = time.perf_counter() - t0
-        self._finish_events()
-        if metrics is not None:
-            for chunk in chunks:
-                metrics = obsm.record_chunk(metrics, chunk.neworder, None)
-            obs.device_metrics = self._fold(metrics, counters)
+        with call_span("call-close"):
+            self._finish_events()
+            if metrics is not None:
+                for chunk in chunks:
+                    metrics = obsm.record_chunk(metrics, chunk.neworder,
+                                                None)
+                obs.device_metrics = self._fold(metrics, counters)
         return state, counters, wall
 
-    def _obs(self, obs):
-        """The session's lattice (None when it wants no metrics) and its
-        span (a null one without a session)."""
+    def _spans(self, obs):
+        """The session's span, and the span of the call's life cycle: its
+        set-up (``call-setup``: ``release``, ``buffers``, ``warm``, a
+        ``capture`` a graph with ``capture-wait``, ``collect``,
+        ``cache-release`` and ``graph-record``, then ``loop-wait``) and
+        its close after the wall clock stops (``call-close``). The second
+        is the first on the card and a null one on the CPU, which captures
+        and waits for nothing and keeps the JAX package's phases. Both are
+        null without a session (``nullcontext(phase)``)."""
         if obs is None:
-            return None, lambda phase: contextlib.nullcontext()
-        return (obs.init_metrics(self.engine) if obs.wants_metrics
-                else None), obs.span
+            return contextlib.nullcontext, contextlib.nullcontext
+        return obs.span, obs.span if self._cuda else contextlib.nullcontext
+
+    def _metrics(self, obs):
+        """The session's lattice, None when it wants no metrics."""
+        if obs is None or not obs.wants_metrics:
+            return None
+        return obs.init_metrics(self.engine)
 
     @staticmethod
     def _fold(metrics, counters: MixCounters):
@@ -617,41 +648,50 @@ class FusedExecutor:
         and each drain's cold rejects join the lattice after the loop.
         Returns (state, esc, counters, wall_seconds, refreshes,
         cold_rejects, retry)."""
-        from .drivers import _adaptive_refresh_due
+        span, call_span = self._spans(obs)
+        with call_span("call-setup"):
+            from .drivers import _adaptive_refresh_due
 
-        if not self._escrow:
-            raise RuntimeError("executor is not in the escrow regime "
-                               "(engine plan says merge) — use run()")
-        for c in chunks:
-            self._check_len(c)
-        eng = self.engine
-        use_retry = self.retry_cap > 0
-        if use_retry:
-            retry = self.init_retry() if retry is None else \
-                tpcc.RetryState(*(x.to(eng.device).clone() for x in retry))
-        bps = chunks[0].neworder.w.shape[1] // eng.n_shards
-        state = eng.shard_state(state)
-        ring = self.init_ring(bps)
-        counters = self.init_counters()
-        metrics, span = self._obs(obs)
-        oks = None if metrics is None else OkBuffer(
-            torch.zeros((len(chunks), self.ring_rows,
-                         chunks[0].neworder.w.shape[1]), dtype=torch.bool,
-                        device=eng.device),
-            torch.zeros((1,), dtype=torch.int64, device=eng.device))
-        if warmup:
-            self._warm_drain(state, ring, esc, retry_max, reserve)
-        graphs = self._prepare(state, ring, counters, esc, chunks, warmup,
-                               oks)
+            if not self._escrow:
+                raise RuntimeError("executor is not in the escrow regime "
+                                   "(engine plan says merge) — use run()")
+            for c in chunks:
+                self._check_len(c)
+            eng = self.engine
+            use_retry = self.retry_cap > 0
+            with call_span("release"):
+                self.last_run = {}
+            with call_span("buffers"):
+                if use_retry:
+                    retry = self.init_retry() if retry is None else \
+                        tpcc.RetryState(*(x.to(eng.device).clone()
+                                          for x in retry))
+                bps = chunks[0].neworder.w.shape[1] // eng.n_shards
+                state = eng.shard_state(state)
+                ring = self.init_ring(bps)
+                counters = self.init_counters()
+                metrics = self._metrics(obs)
+                oks = None if metrics is None else OkBuffer(
+                    torch.zeros((len(chunks), self.ring_rows,
+                                 chunks[0].neworder.w.shape[1]),
+                                dtype=torch.bool, device=eng.device),
+                    torch.zeros((1,), dtype=torch.int64, device=eng.device))
+            if warmup:
+                with call_span("warm"):
+                    self._warm_drain(state, ring, esc, retry_max, reserve)
+                    self._warm(state, ring, counters, esc, chunks[0], oks)
+            graphs = self._prepare(state, ring, counters, esc, chunks, oks,
+                                   call_span)
 
-        adaptive = refresh_abort_rate is not None
-        aborts_at_refresh = np.zeros(eng.n_shards, np.int64)
-        txns_at_refresh = txns_so_far = 0
-        refreshes = 0
-        rej_acc = torch.zeros((eng.n_shards,), dtype=torch.int32,
-                              device=eng.device)
-        rejs = []
-        synchronize(eng.device)
+            adaptive = refresh_abort_rate is not None
+            aborts_at_refresh = np.zeros(eng.n_shards, np.int64)
+            txns_at_refresh = txns_so_far = 0
+            refreshes = 0
+            rej_acc = torch.zeros((eng.n_shards,), dtype=torch.int32,
+                                  device=eng.device)
+            rejs = []
+            with call_span("loop-wait"):
+                synchronize(eng.device)
         t0 = time.perf_counter()
         for ci, chunk in enumerate(chunks):
             with span("megastep"):
@@ -685,22 +725,25 @@ class FusedExecutor:
             refreshes += int(due)
         synchronize(eng.device)
         wall = time.perf_counter() - t0
-        self._finish_events()
-        if metrics is not None:
-            if int(oks.cursor) != len(chunks):
-                raise RuntimeError(f"the commit masks of {int(oks.cursor)} "
-                                   f"chunks were written, of {len(chunks)}")
-            for ci, chunk in enumerate(chunks):
-                metrics = obsm.record_chunk(
-                    metrics, chunk.neworder, oks.buf[ci, :chunk.chunk_len])
-            for rej in rejs:
-                metrics = obsm.add_cold_rejects(metrics, rej)
-            obs.device_metrics = self._fold(metrics, counters)
-        cold = int(rej_acc.sum())
-        if use_retry and final_flush:
-            # entries still pending never got their last window: final
-            # rejects (one host read)
-            cold += int(retry.valid.sum())
+        with call_span("call-close"):
+            self._finish_events()
+            if metrics is not None:
+                if int(oks.cursor) != len(chunks):
+                    raise RuntimeError(
+                        f"the commit masks of {int(oks.cursor)} chunks "
+                        f"were written, of {len(chunks)}")
+                for ci, chunk in enumerate(chunks):
+                    metrics = obsm.record_chunk(
+                        metrics, chunk.neworder,
+                        oks.buf[ci, :chunk.chunk_len])
+                for rej in rejs:
+                    metrics = obsm.add_cold_rejects(metrics, rej)
+                obs.device_metrics = self._fold(metrics, counters)
+            cold = int(rej_acc.sum())
+            if use_retry and final_flush:
+                # entries still pending never got their last window: final
+                # rejects (one host read)
+                cold += int(retry.valid.sum())
         return state, esc, counters, wall, refreshes, cold, retry
 
     # -- structural proofs ----------------------------------------------------

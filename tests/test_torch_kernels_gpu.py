@@ -768,8 +768,19 @@ OBS_ROWS = {k: FUSED_ROWS[k] for k in ("merge mix",
                                        "escrow, txn_megastep, mix")}
 
 
+# the executor's spans of its call's set-up and close, which it opens on
+# the card only, and each one's parent
+CALL_SPANS = {"call-setup": None, "release": "call-setup",
+              "buffers": "call-setup", "warm": "call-setup",
+              "capture": "call-setup", "capture-wait": "capture",
+              "collect": "capture", "cache-release": "capture",
+              "graph-record": "capture", "loop-wait": "call-setup",
+              "call-close": None}
+
+
 def _exact_snapshot(snap):
-    """A snapshot without the fields derived from wall time."""
+    """A snapshot without the fields derived from wall time, its spans
+    those the CPU opens too."""
     out = {k: snap[k] for k in ("latency", "counters", "item_access")}
     for row in out["latency"].values():
         row.pop("p50_s")
@@ -778,7 +789,8 @@ def _exact_snapshot(snap):
     stats.pop("wall_seconds")
     stats.pop("throughput")
     out["stats"] = stats
-    out["spans"] = {p: v["count"] for p, v in snap["spans"]["phases"].items()}
+    out["spans"] = {p: v["count"] for p, v in snap["spans"]["phases"].items()
+                    if p not in CALL_SPANS}
     return out
 
 
@@ -813,6 +825,8 @@ def test_metrics_on_replays_bit_equal_to_metrics_off(cuda, R, row):
                                               txn_megastep_cuda,
                                               ramp_read_cuda))
         snap = None if obs is None else _exact_snapshot(obs.snapshot())
+        if obs is not None and dev != "cpu":     # run_loop's one call
+            assert obs.tracer.phases["call-setup"].count == 1
         st.wall_seconds = 0.0
         graphs = {}
         if dev != "cpu":
@@ -837,6 +851,65 @@ def test_metrics_on_replays_bit_equal_to_metrics_off(cuda, R, row):
     else:         # the escrow regime's adds the commit-mask write only
         assert {T: g[0] for T, g in on[3].items()} == \
             {T: g[0] for T, g in off[3].items()}
+
+
+@pytest.mark.parametrize("regime", ["merge", "escrow"])
+def test_call_spans_on_the_card(cuda, regime):
+    """Two executor calls with spans, the first with its warm-up: each
+    call opens one ``capture`` a distinct chunk length under
+    ``call-setup``, and every call span under its parent; the final state
+    is bit-equal to the same calls without spans; and
+    ``portbench.tracing.summarize`` counts none of the call spans'
+    profiler ranges as device work."""
+    from portbench import tracing
+    from repro_torch.obs import ObsSession
+    from repro_torch.txn.drivers import generate_mix_batches
+    from repro_torch.txn.engine import Engine
+    from repro_torch.txn.executor import FusedExecutor, stack_chunks
+
+    scale = tpcc.TPCCScale(n_warehouses=4, districts=4, customers=8,
+                           n_items=64, order_capacity=64, max_lines=15)
+    escrow = regime == "escrow"
+    e = Engine(scale, device=cuda, **(dict(
+        stock_invariant="strict", hot_items=4, admission="kernel",
+        effects="fused") if escrow else {}))
+    chunks = stack_chunks(*generate_mix_batches(
+        e, batch_per_shard=8, n_batches=5, remote_frac=0.3, seed=3), 2)
+    ex = FusedExecutor(e, ring_rows=2)              # chunks of 2, 2 and 1
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    finals = {}
+    for traced in (False, True):
+        state = tpcc.init_state(scale, device=cuda)
+        esc = e.init_escrow(state) if escrow else None
+        obs = ObsSession(metrics=False, trace=True) if traced else None
+        with torch.profiler.profile(activities=acts) as prof:
+            for warmup in (True, False):
+                with torch.profiler.record_function(tracing.PASS):
+                    if escrow:
+                        state, esc, counters, *_ = ex.run_escrow(
+                            state, esc, chunks, warmup=warmup, obs=obs)
+                    else:
+                        state, counters, _ = ex.run(state, chunks,
+                                                    warmup=warmup, obs=obs)
+        finals[traced] = [x.cpu() for x in (*state, *(esc or ()),
+                                            *counters)]
+    phases = obs.tracer.phases
+    assert {k: p.parent for k, p in phases.items() if k in CALL_SPANS} == \
+        CALL_SPANS
+    counts = {k: p.count for k, p in phases.items()}
+    assert counts["call-setup"] == counts["call-close"] == 2
+    assert counts["warm"] == 1
+    for k in ("capture", "capture-wait", "collect", "cache-release",
+              "graph-record"):
+        assert counts[k] == 2 * 2, k               # lengths 2 and 1, a call
+    assert counts["megastep"] == 2 * 3
+    assert int(counters.neworders.sum()) > 0
+    assert all(torch.equal(a, b) for a, b in zip(finals[False],
+                                                 finals[True]))
+    summary = tracing.summarize(prof)
+    assert summary.n_device_events > 0
+    assert not set(summary.kernel_s) & set(CALL_SPANS)
 
 
 def test_item_access_scatter_on_the_card_matches_the_cpu(cuda):

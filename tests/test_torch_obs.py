@@ -779,11 +779,97 @@ def test_tracer_span_accounting():
     assert tr.dashboard().splitlines()[:2] == jtr.dashboard().splitlines()[:2]
 
 
+def test_tracer_nests_spans(monkeypatch):
+    """A span keeps its parent (the span open around it) and its self time
+    (its clock less its children's); shares over self time sum to 1; the
+    dashboard lists each child indented under its parent."""
+    from repro_torch.obs import trace
+
+    clock = iter(float(t) for t in range(100))
+    monkeypatch.setattr(trace.time, "perf_counter", lambda: next(clock))
+    tr = PhaseTracer(enabled=True)
+    for _ in range(2):
+        with tr.span("call-setup"):          # 7 s, 3 of them its own
+            with tr.span("capture"):         # 3 s, 2 of them its own
+                with tr.span("graph-record"):
+                    pass
+            with tr.span("loop-wait"):
+                pass
+        with tr.span("megastep"):
+            pass
+    snap = tr.snapshot()["phases"]
+    assert {k: v["parent"] for k, v in snap.items()} == {
+        "graph-record": "capture", "capture": "call-setup",
+        "loop-wait": "call-setup", "call-setup": None, "megastep": None}
+    assert {k: (v["count"], v["total_s"], v["self_s"])
+            for k, v in snap.items()} == {
+        "graph-record": (2, 2.0, 2.0), "capture": (2, 6.0, 4.0),
+        "loop-wait": (2, 2.0, 2.0), "call-setup": (2, 14.0, 6.0),
+        "megastep": (2, 2.0, 2.0)}
+    assert sum(v["share"] for v in snap.values()) == pytest.approx(1.0)
+    assert snap["call-setup"]["share"] == pytest.approx(6 / 16)
+    names = [line.split()[0] for line in tr.dashboard().splitlines()[2:]]
+    indents = [len(line) - len(line.lstrip())
+               for line in tr.dashboard().splitlines()[2:]]
+    assert names == ["call-setup", "capture", "graph-record", "loop-wait",
+                     "megastep"]
+    assert indents == [2, 4, 6, 4, 2]
+
+
+@pytest.mark.parametrize("name", ["merge_mix", "sparse_mix", "ring"])
+def test_cpu_executor_call_opens_only_the_reference_phases(name, ref):
+    """On the CPU the executor opens none of its call spans: a call with
+    its warm-up opens only the loop's phases, those the JAX package's
+    run of the same configuration opens."""
+    sc, ekw, kw = CONFIGS[name]
+    e = _engine(sc, **ekw)
+    ex = get_fused_executor(e, ring_rows=kw["merge_every"],
+                            deliveries=kw.get("deliveries", False),
+                            retry_cap=kw.get("retry_cap", 0))
+    from repro_torch.txn.drivers import generate_mix_batches
+    from repro_torch.txn.executor import stack_chunks
+
+    no_b, *rest = generate_mix_batches(
+        e, batch_per_shard=kw["batch_per_shard"], n_batches=kw["n_batches"],
+        remote_frac=kw["remote_frac"], seed=kw["seed"],
+        item_skew=kw.get("item_skew", 0.0))
+    if not kw.get("payments"):
+        rest = [None] * 3
+    chunks = stack_chunks(no_b, *rest, kw["merge_every"])
+    state = tt.init_state(e.scale, device="cpu")
+    obs = ObsSession(metrics=False, trace=True)
+    if ex._escrow:
+        ex.run_escrow(state, e.init_escrow(state), chunks, obs=obs)
+    else:
+        ex.run(state, chunks, obs=obs)
+    got = set(obs.tracer.phases)
+    assert got and got <= set(ref[f"{name}/R1"]["spans"]) - {"audit"}
+    assert all(p.parent is None for p in obs.tracer.phases.values())
+
+
+def test_tracer_keeps_one_parent_a_phase():
+    """A phase opened under another parent than its first raises, before
+    its body runs, and leaves the tracer's phases as they were."""
+    tr = PhaseTracer(enabled=True)
+    with tr.span("call-setup"):
+        with tr.span("capture"):
+            pass
+    ran = []
+    with pytest.raises(ValueError, match="'capture' opened under None"):
+        with tr.span("capture"):
+            ran.append(1)
+    assert not ran and not tr._stack
+    assert {k: (p.parent, p.count) for k, p in tr.phases.items()} == {
+        "capture": ("call-setup", 1), "call-setup": (None, 1)}
+    with tr.span("call-setup"), tr.span("capture"):
+        pass
+    assert tr.phases["capture"].count == 2
+
+
 def test_tracer_disabled_is_inert():
     tr = PhaseTracer(enabled=False, sync=True)
     with tr.span("megastep"):
         pass
-    tr.record("drain", 1.0)
     assert tr.snapshot()["phases"] == {} == \
         JTracer(enabled=False).snapshot()["phases"]
     x = torch.zeros(2)

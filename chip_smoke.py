@@ -1864,7 +1864,7 @@ def cold_retry_ring(scale):
           f"(ms, in turns): {json.dumps(drain_ms)}")
     # what a drain's time is made of: owner 0's stock apply of the gathered
     # window as the drain makes it (every entry it does not own adds 0 at
-    # its cell (0, 0)), and the same apply of its own entries alone
+    # a cell of its own), and the same apply of its own entries alone
     g = window.flat()
     own = g.valid & (g.dst_w < b2.w_per_shard)
     mine = own.nonzero()[:, 0]

@@ -268,6 +268,14 @@ class Engine:
         return gather_and_apply_outbox(state, outbox, self.w_per_shard,
                                        self.n_shards, restock=self._restock)
 
+    def owned_lanes(self, outbox) -> torch.Tensor:
+        """The lanes of ``outbox`` (any shape: a flat outbox or the
+        executor's ring) that carry work in a drain: every owner's mask
+        summed on the device (0-d int64). Each owner's stock scatter takes
+        all ``n_shards * numel`` lanes, the others adding zero."""
+        return torch.stack([_owned_by(outbox, r, self.w_per_shard).sum()
+                            for r in range(self.n_shards)]).sum()
+
     # -- the rest of the five-transaction mix ---------------------------------
 
     def payment_step(self, state: TPCCState, batch: PaymentBatch,

@@ -244,7 +244,10 @@ class FusedExecutor:
 
     After a run on the card, ``last_run`` holds the run's graphs by chunk
     length (their launches, pool bytes and replays) and, from CUDA events,
-    each chunk replay's and each drain's milliseconds.
+    each chunk replay's and each drain's milliseconds. After a run whose
+    session wants metrics (card or CPU) it also holds ``drain_lanes`` and
+    ``drain_live_lanes``: how many lanes the drains' stock scatters took,
+    and how many of them carried work.
     """
 
     engine: object
@@ -543,6 +546,7 @@ class FusedExecutor:
                     chunks[0].neworder.w.shape[1] // eng.n_shards)
                 counters = self.init_counters()
                 metrics = self._metrics(obs)
+                live = self._live_lanes(metrics)
             if warmup:
                 with call_span("warm"):
                     self._warm_drain(state, ring, None)
@@ -557,6 +561,8 @@ class FusedExecutor:
                 self._execute(graphs, state, ring, counters, None, chunk)
                 if obs is not None:
                     obs.maybe_sync(counters)
+            if live is not None:
+                live.add_(eng.owned_lanes(ring))
             with span("outbox-drain"):
                 self._timed("drain_ms", lambda: self.drain(state, ring))
                 if obs is not None:
@@ -570,6 +576,7 @@ class FusedExecutor:
                     metrics = obsm.record_chunk(metrics, chunk.neworder,
                                                 None)
                 obs.device_metrics = self._fold(metrics, counters)
+                self._count_lanes(live, len(chunks), ring)
         return state, counters, wall
 
     def _spans(self, obs):
@@ -590,6 +597,22 @@ class FusedExecutor:
         if obs is None or not obs.wants_metrics:
             return None
         return obs.init_metrics(self.engine)
+
+    def _live_lanes(self, metrics):
+        """The drains' live-lane sum on the device, None when the session
+        wants no metrics (the timed loop then launches nothing for it)."""
+        if metrics is None:
+            return None
+        return torch.zeros((), dtype=torch.int64, device=self.engine.device)
+
+    def _count_lanes(self, live, drains: int, ring: OutboxRing) -> None:
+        """``last_run["drain_lanes"]``, the lanes the drains' stock
+        scatters took (each owner takes the whole ring), and
+        ``["drain_live_lanes"]``, those of them that carry work: read
+        after the wall clock."""
+        self.last_run["drain_lanes"] = (drains * self.engine.n_shards
+                                        * ring.valid.numel())
+        self.last_run["drain_live_lanes"] = int(live)
 
     @staticmethod
     def _fold(metrics, counters: MixCounters):
@@ -676,6 +699,7 @@ class FusedExecutor:
                                  chunks[0].neworder.w.shape[1]),
                                 dtype=torch.bool, device=eng.device),
                     torch.zeros((1,), dtype=torch.int64, device=eng.device))
+                live = self._live_lanes(metrics)
             if warmup:
                 with call_span("warm"):
                     self._warm_drain(state, ring, esc, retry_max, reserve)
@@ -713,6 +737,8 @@ class FusedExecutor:
             if liveness is not None:
                 # one monitor tick a drain window, feeding its refresh
                 alive = liveness.tick().astype(np.int32)
+            if live is not None:
+                live.add_(eng.owned_lanes(ring))
             with span("share-refresh" if due else "outbox-drain"):
                 rej = self._timed("drain_ms", lambda: self._drain_window(
                     state, ring, esc, retry if use_retry else None, due,
@@ -739,6 +765,7 @@ class FusedExecutor:
                 for rej in rejs:
                     metrics = obsm.add_cold_rejects(metrics, rej)
                 obs.device_metrics = self._fold(metrics, counters)
+                self._count_lanes(live, len(chunks), ring)
             cold = int(rej_acc.sum())
             if use_retry and final_flush:
                 # entries still pending never got their last window: final

@@ -314,28 +314,52 @@ class StockDelta(NamedTuple):
     valid: Tensor  # [R] bool
 
 
+def _flat_cells(w_idx: Tensor, i_idx: Tensor, mask: Tensor,
+                table: Tensor) -> Tensor:
+    """The cells ``w * I + i`` of ``table.view(-1)`` that the masked lanes
+    name; every other lane gets a cell of its own, ``lane % numel``, where
+    it adds zero, so no run of duplicates piles up on one dump cell."""
+    lane = torch.arange(mask.shape[0], device=mask.device)
+    return torch.where(mask, w_idx.long() * table.shape[1] + i_idx.long(),
+                       lane % table.numel())
+
+
 def apply_stock_updates(state: TPCCState, w_idx: Tensor, i_idx: Tensor,
                         qty: Tensor, mask: Tensor, remote: Tensor,
                         restock: bool = True) -> TPCCState:
     """Owner-side stock effect (TPC-C §2.4.2.2): S_YTD += qty,
     S_ORDER_CNT += 1, S_REMOTE_CNT += remote, S_QUANTITY -= qty, then, with
     ``restock``, +91 while below 10 (the float32 ceil rule of the
-    reference). ``restock=False`` is the strict-stock regime. Integer
-    scatter-adds are exact in any order; so is S_YTD's, whose addends are
-    integers far below 2**24."""
-    idx = (torch.where(mask, w_idx, 0).long(),
-           torch.where(mask, i_idx, 0).long())
+    reference). ``restock=False`` is the strict-stock regime.
+
+    The four columns take ``index_add_`` on flat views (``view``, never
+    ``reshape``, which would copy a non-contiguous view and drop the
+    writes), a masked lane adding zero at a cell of its own
+    (:func:`_flat_cells`). Integer adds are exact in any order; so is
+    S_YTD's, whose addends are integers far below 2**24 and whose cells
+    are never -0.0, so a masked lane's +0.0 leaves their bits."""
+    cell = _flat_cells(w_idx, i_idx, mask, state.s_quantity)
     qty_m = torch.where(mask, qty, 0)
-    state.s_ytd.index_put_(idx, qty_m.to(state.s_ytd.dtype), accumulate=True)
-    state.s_order_cnt.index_put_(idx, mask.to(torch.int32), accumulate=True)
-    state.s_remote_cnt.index_put_(idx, (mask & remote).to(torch.int32),
-                                  accumulate=True)
+    state.s_ytd.view(-1).index_add_(0, cell, qty_m.to(state.s_ytd.dtype))
+    state.s_order_cnt.view(-1).index_add_(0, cell, mask.to(torch.int32))
+    state.s_remote_cnt.view(-1).index_add_(0, cell,
+                                           (mask & remote).to(torch.int32))
     s_q = state.s_quantity
-    s_q.index_put_(idx, -qty_m, accumulate=True)
+    s_q.view(-1).index_add_(0, cell, -qty_m)
     if restock:
         deficit = torch.ceil((10 - s_q) / 91.0).clamp_min(0).to(torch.int32)
         s_q.copy_(torch.where(s_q < 10, s_q + deficit * 91, s_q))
     return state
+
+
+def _cold_fits(s_quantity: Tensor, w_idx: Tensor, i_idx: Tensor,
+               qty: Tensor, cold: Tensor) -> Tensor:
+    """[N] bool: the cold lane's cell's total cold demand fits its stock
+    (the per-cell all-or-nothing rule), read at the lanes' own cells."""
+    cell = _flat_cells(w_idx, i_idx, cold, s_quantity)
+    demand = torch.zeros_like(s_quantity).view(-1)
+    demand.index_add_(0, cell, torch.where(cold, qty, 0))
+    return cold & (demand[cell] <= s_quantity.view(-1)[cell])
 
 
 # ---------------------------------------------------------------------------
@@ -894,12 +918,7 @@ def apply_stock_updates_strict_tiered(state: TPCCState, hot_keys: Tensor,
     w_idx = torch.where(mask, dst_w - w_lo, 0)
     i_idx = torch.where(mask, i_idx, 0)
     cold = mask & ~is_hot
-    demand = torch.zeros_like(state.s_quantity)
-    demand.index_put_((torch.where(cold, w_idx, 0).long(),
-                       torch.where(cold, i_idx, 0).long()),
-                      torch.where(cold, qty, 0), accumulate=True)
-    fits = demand <= state.s_quantity
-    admit_cold = cold & fits[w_idx.long(), i_idx.long()]
+    admit_cold = _cold_fits(state.s_quantity, w_idx, i_idx, qty, cold)
     rejects = (cold & ~admit_cold).sum().to(torch.int32)
     state = apply_stock_updates(state, w_idx, i_idx, qty,
                                 (mask & is_hot) | admit_cold, remote,
@@ -1029,11 +1048,7 @@ def apply_stock_updates_strict_tiered_retry(
     w_idx = torch.where(mask, dst_w - w_lo, 0)
     i_l = torch.where(mask, i_idx, 0)
     cold = mask & ~is_hot
-    demand = torch.zeros_like(sq)
-    demand.index_put_((torch.where(cold, w_idx, 0).long(),
-                       torch.where(cold, i_l, 0).long()),
-                      torch.where(cold, qty, 0), accumulate=True)
-    admit_cold = cold & (demand <= sq)[w_idx.long(), i_l.long()]
+    admit_cold = _cold_fits(sq, w_idx, i_l, qty, cold)
     apply_stock_updates(state, w_idx, i_l, qty, (mask & is_hot) | admit_cold,
                         remote, restock=False)
     f_rej = cold & ~admit_cold

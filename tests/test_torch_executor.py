@@ -631,6 +631,60 @@ def test_fused_cpu_run_is_eager_and_timed():
         k.__name__ for k in executor.KERNELS} != set()
 
 
+@pytest.mark.parametrize("R", [1, 2])
+@pytest.mark.parametrize("regime", ["merge", "escrow"])
+def test_drain_lane_counters(monkeypatch, regime, R):
+    """A metrics-on run's ``last_run["drain_lanes"]`` counts the lanes its
+    drains' stock scatters took, every owner the whole ring (a drain at
+    the benchmark's shape, 8 x 256 x 15, takes 30,720), and
+    ``["drain_live_lanes"]`` the ring's live remote lines: in the merge
+    regime the valid lines whose supply warehouse lies outside their home
+    shard, in the escrow regime those of committed orders. At R = 1 every
+    line is local and every lane masked. A metrics-off run counts
+    nothing."""
+    from repro_torch.obs import ObsSession
+
+    strict = regime == "escrow"
+    e = _engine(R, **(dict(STRICT, hot_items=4, admission="kernel")
+                      if strict else {}))
+    rows, bps = 4, 4
+    ex = FusedExecutor(e, ring_rows=rows)
+    chunks = _chunks(e, 7, rows, bps=bps, seed=5, remote_frac=0.3)
+    seen = []
+    name = "drain_strict" if strict else "drain"
+    drain = getattr(ex, name)
+
+    def counted(state, ring, *a):
+        seen.append(int(ring.valid.sum()))
+        return drain(state, ring, *a)
+
+    monkeypatch.setattr(ex, name, counted)
+    wps = e.w_per_shard
+    remote_lines = sum(int((
+        (torch.arange(e.scale.max_lines) < c.neworder.n_lines[..., None])
+        & (c.neworder.supply_w // wps != (c.neworder.w // wps)[..., None])
+    ).sum()) for c in chunks)
+    state = tt.init_state(e.scale, device="cpu")
+    for obs in (None, ObsSession(metrics=True, trace=False)):
+        seen.clear()
+        if strict:
+            ex.run_escrow(state, e.init_escrow(state), chunks, obs=obs)
+        else:
+            ex.run(state, chunks, obs=obs)
+        if obs is None:
+            assert ex.last_run == {}
+    assert ex.last_run["drain_lanes"] == len(chunks) * R * rows * (
+        bps * R * e.scale.max_lines)
+    live = ex.last_run["drain_live_lanes"]
+    assert live == sum(seen)
+    if R == 1:
+        assert live == remote_lines == 0
+    elif strict:
+        assert 0 < live < remote_lines   # some orders abort
+    else:
+        assert live == remote_lines > 0
+
+
 # ---------------------------------------------------------------------------
 # run_loop against the reference's runs (last: they wait for its
 # subprocesses)

@@ -577,6 +577,104 @@ def test_cold_retry_ring_on_the_card_matches_the_cpu(cuda):
     assert launches == 4 * (kw["n_batches"] + 1)
 
 
+@pytest.fixture(scope="module")
+def card():
+    """The card alone: the stock scatter is torch ops, no kernel to
+    build."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the scatter's atomics run only on "
+                    "the card")
+    return torch.device("cuda")
+
+
+def _stock_scale(W=256):
+    """The spec's stock tables (``W`` x 100,000 items) with the other
+    tables cut to nothing: the drains read and write the stock alone."""
+    return tpcc.TPCCScale(n_warehouses=W, districts=1, customers=2,
+                          n_items=100_000, order_capacity=2, max_lines=15)
+
+
+def _stock_state(scale, seed, device):
+    state = tpcc.init_state(scale, seed=seed, device=device)
+    state.s_ytd.copy_(state.s_quantity.to(state.s_ytd.dtype) * 3)
+    return state
+
+
+@pytest.mark.parametrize("R", [1, 4])
+@pytest.mark.parametrize("drain", ["merge", "strict"])
+def test_spec_ring_drain_on_the_card_matches_the_cpu(card, drain, R):
+    """A drain of a spec-shaped ring (8 rows x 256 New-Orders x 15 lines,
+    30,720 lanes, 1% live, half of those on 16 cells so live lanes
+    collide on cold cells) through the engine's drain bodies: the stock columns and the
+    cold rejects on the card equal the CPU's bit for bit, ``s_ytd``
+    included (its adds are integers, exact in any order)."""
+    from repro_torch.txn import engine as eg
+
+    scale = _stock_scale()
+    W, I, N = scale.n_warehouses, scale.n_items, 8 * 256 * 15
+    rng = np.random.default_rng(40 + R)
+    live = rng.random(N) < 0.01
+    hot = rng.random(N) < 0.5
+    dst_w = np.where(hot, 3, rng.integers(0, W, N)).astype(np.int32)
+    i_id = np.where(hot, 5000 + rng.integers(0, 16, N),
+                    rng.integers(0, I, N)).astype(np.int32)
+    cols = (dst_w, i_id, rng.integers(1, 11, N).astype(np.int32), live)
+    keys = torch.from_numpy(tpcc.select_hot_cells(scale, 1000))
+    out = []
+    for dev in ("cpu", card):
+        state = _stock_state(scale, 9, dev)
+        outbox = tpcc.StockDelta(*(torch.from_numpy(x).to(dev)
+                                   for x in cols))
+        if drain == "merge":
+            eg.gather_and_apply_outbox(state, outbox, W // R, R)
+            rej = torch.zeros(R, dtype=torch.int32)
+        else:
+            state, rej = eg.gather_and_apply_outbox_strict(
+                state, outbox, keys.to(dev), W // R, I, R)
+        out.append([x.cpu() for x in (state.s_quantity, state.s_ytd,
+                                      state.s_order_cnt, state.s_remote_cnt,
+                                      rej)])
+    want, got = out
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and torch.equal(
+            x.view(torch.int32) if x.is_floating_point() else x,
+            y.view(torch.int32) if y.is_floating_point() else y)
+    assert int(want[2].sum()) > int(_stock_state(
+        scale, 9, "cpu").s_order_cnt.sum())
+    if drain == "strict":
+        assert int(want[-1].sum()) > 0   # a cold cell did not fit
+
+
+def test_captured_neworder_stock_update_matches_eager(card):
+    """The merge chunk's stock update (``apply_neworder``'s local lines of
+    a 256-order batch, the padding lines masked) captured in a CUDA graph
+    and replayed twice equals two eager applies, bit for bit."""
+    scale = _stock_scale(64)
+    state = _stock_state(scale, 4, card)
+    batch = tpcc.generate_neworder(np.random.default_rng(4), scale, 256,
+                                   remote_frac=0.01, device=card)
+    flat = tpcc.flatten_order_lines(batch, 0, scale.n_warehouses)
+    mask = tpcc.order_line_valid(batch).reshape(-1) & flat.local
+    args = (flat.w, flat.i, flat.q, mask, flat.remote)
+    want = tpcc.copy_tree(state)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tpcc.apply_stock_updates(tpcc.copy_tree(state), *args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        tpcc.apply_stock_updates(state, *args)
+    for _ in range(2):
+        graph.replay()
+        tpcc.apply_stock_updates(want, *args)
+    torch.cuda.synchronize()
+    assert int((~mask).sum()) > 0
+    for name in ("s_quantity", "s_ytd", "s_order_cnt", "s_remote_cnt"):
+        x, y = getattr(state, name), getattr(want, name)
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32)), name
+
+
 @pytest.mark.parametrize("mode", ["recover", "revive"])
 def test_pod_simulator_on_the_card_matches_the_cpu(cuda, tmp_path, mode):
     """The escrow pod simulator through a failure: ``recover``, replica 2

@@ -252,6 +252,127 @@ def test_strict_tiered_drain_matches_reference():
     assert _mismatches(ref, port) == []
 
 
+# The stock scatter's oracle: the index_put_(accumulate=True) form it
+# replaced, every masked lane adding zero at cell (0, 0).
+
+
+def _put_stock_updates(state, w_idx, i_idx, qty, mask, remote, restock):
+    idx = (torch.where(mask, w_idx, 0).long(),
+           torch.where(mask, i_idx, 0).long())
+    qty_m = torch.where(mask, qty, 0)
+    state.s_ytd.index_put_(idx, qty_m.to(state.s_ytd.dtype), accumulate=True)
+    state.s_order_cnt.index_put_(idx, mask.to(torch.int32), accumulate=True)
+    state.s_remote_cnt.index_put_(idx, (mask & remote).to(torch.int32),
+                                  accumulate=True)
+    s_q = state.s_quantity
+    s_q.index_put_(idx, -qty_m, accumulate=True)
+    if restock:
+        deficit = torch.ceil((10 - s_q) / 91.0).clamp_min(0).to(torch.int32)
+        s_q.copy_(torch.where(s_q < 10, s_q + deficit * 91, s_q))
+
+
+def _put_strict_tiered(state, hot_keys, dst_w, i_idx, qty, mask, remote,
+                       n_items, w_lo):
+    _, is_hot = tt.hot_position(hot_keys, dst_w * n_items + i_idx)
+    w_idx = torch.where(mask, dst_w - w_lo, 0)
+    i_idx = torch.where(mask, i_idx, 0)
+    cold = mask & ~is_hot
+    demand = torch.zeros_like(state.s_quantity)
+    demand.index_put_((torch.where(cold, w_idx, 0).long(),
+                       torch.where(cold, i_idx, 0).long()),
+                      torch.where(cold, qty, 0), accumulate=True)
+    admit_cold = cold & (demand <= state.s_quantity)[w_idx.long(),
+                                                     i_idx.long()]
+    _put_stock_updates(state, w_idx, i_idx, qty,
+                       (mask & is_hot) | admit_cold, remote, False)
+    return (cold & ~admit_cold).sum().to(torch.int32)
+
+
+STOCK = ("s_quantity", "s_ytd", "s_order_cnt", "s_remote_cnt")
+# name -> (warehouses, items, lanes, live share, owners, drain): "restock"
+# and "strict-stock" are apply_stock_updates with and without the restock
+# pass, "one cell" the latter with every live lane on one cell, "tiered"
+# the strict tiered drain (hot keys, cold cells that fit and cells that
+# do not)
+SCATTERS = {
+    "ring 1% live": (16, 4096, 8 * 256 * 15, 0.01, 1, "restock"),
+    "ring 1% live, strict stock": (16, 4096, 8 * 256 * 15, 0.01, 1,
+                                   "strict-stock"),
+    "live duplicates": (4, 64, 3000, 0.5, 1, "one cell"),
+    "more lanes than cells": (2, 8, 500, 0.5, 1, "restock"),
+    "every lane masked": (4, 64, 600, 0.0, 1, "restock"),
+    "shard view R=4": (16, 512, 8 * 64 * 15, 0.3, 4, "restock"),
+    "strict tiered": (8, 256, 4000, 0.6, 1, "tiered"),
+    "strict tiered R=4": (16, 128, 4000, 0.6, 4, "tiered"),
+}
+
+
+def _stock_state(W, I, rng):
+    """A state whose stock columns hold seeded values: stock low enough
+    that cold cells overflow, s_ytd integer-valued and never -0.0."""
+    state = tt.init_state(tt.TPCCScale(n_warehouses=W, districts=1,
+                                       customers=2, n_items=I,
+                                       order_capacity=2), device=CPU)
+    for name, hi in zip(STOCK, (30, 5000, 50, 9)):
+        x = getattr(state, name)
+        x.copy_(torch.from_numpy(rng.integers(0, hi, (W, I))).to(x.dtype))
+    return state
+
+
+@pytest.mark.parametrize("case", list(SCATTERS))
+def test_stock_scatter_equals_the_sorted_put(case):
+    """``apply_stock_updates`` (``index_add_`` on flat views, a masked lane
+    adding zero at a cell of its own) and the strict drain over it give
+    the stock columns of the ``index_put_(accumulate=True)`` form bit for
+    bit, ``s_ytd`` included: a drain's whole ring with 1% live lanes, live
+    lanes all on one cell, more lanes than cells, every lane masked, each
+    owner's shard view at R = 4, the strict tiered drain at R = 1 and 4."""
+    from repro_torch.txn.engine import shard_view
+
+    W, I, N, live, owners, drain = SCATTERS[case]
+    rng = np.random.default_rng(list(SCATTERS).index(case))
+    got = _stock_state(W, I, rng)
+    before, want = tt.copy_tree(got), tt.copy_tree(got)
+    draw = lambda hi: torch.from_numpy(  # noqa: E731
+        rng.integers(0, hi, N).astype(np.int32))
+    dst_w, i_id, qty = draw(W), draw(I), draw(10) + 1
+    if drain == "one cell":
+        dst_w.fill_(W - 1)
+        i_id.fill_(I // 2)
+    valid = torch.from_numpy(rng.random(N) < live)
+    remote = torch.from_numpy(rng.random(N) < 0.5)
+    keys = torch.from_numpy(np.sort(rng.choice(W * I, W * I // 8,
+                                               replace=False))
+                            .astype(np.int32))
+    wps = W // owners
+    rejects = 0
+    for r in range(owners):
+        w_lo = r * wps
+        own = valid & (dst_w >= w_lo) & (dst_w < w_lo + wps)
+        views = shard_view(got, r, wps), shard_view(want, r, wps)
+        if drain == "tiered":
+            _, rej = tt.apply_stock_updates_strict_tiered(
+                views[0], keys, dst_w, i_id, qty, own, remote, I, w_lo=w_lo)
+            assert int(rej) == int(_put_strict_tiered(
+                views[1], keys, dst_w, i_id, qty, own, remote, I, w_lo))
+            rejects += int(rej)
+        else:
+            restock = drain == "restock"
+            tt.apply_stock_updates(views[0], dst_w - w_lo, i_id, qty, own,
+                                   remote, restock=restock)
+            _put_stock_updates(views[1], dst_w - w_lo, i_id, qty, own,
+                               remote, restock)
+    for name in STOCK:
+        a, b = getattr(got, name), getattr(want, name)
+        assert a.dtype == b.dtype and torch.equal(
+            a.view(torch.int32), b.view(torch.int32)), name
+    assert torch.equal(got.s_order_cnt, before.s_order_cnt) == (live == 0)
+    if drain == "tiered":
+        # cold cells that fit and cells that do not: both happened
+        cold = valid & ~tt.hot_position(keys, dst_w * I + i_id)[1]
+        assert 0 < rejects < int(cold.sum())
+
+
 def test_escrow_share_and_hot_set_match_reference():
     rng = np.random.default_rng(3)
     q = rng.integers(0, 50, 12).astype(np.int32)

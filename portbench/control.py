@@ -9,6 +9,7 @@ them, on the card where there is one.
 """
 
 import argparse
+import importlib
 import json
 import sys
 import time
@@ -17,7 +18,6 @@ from pathlib import Path
 sys.path[:0] = [str(Path(__file__).resolve().parents[1])]
 
 from portbench import run  # noqa: E402
-from portbench.drivers import tpcc_fused  # noqa: E402
 from portbench.reference import judge  # noqa: E402
 
 
@@ -28,19 +28,19 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     _, cfg, traffic = run.cell_files(
         json.loads((run.ROOT / "BENCHMARK.json").read_text()), args.workload)
+    driver = importlib.import_module(f"portbench.drivers.{cfg['driver']}")
     import torch
 
     device = "cuda" if torch.cuda.is_available() else "cpu"
     escrow = cfg["regime"] == "escrow"
     for seed in args.seeds:
-        judged, initial = tpcc_fused.initial_tables(cfg, traffic, seed,
-                                                    device)
+        judged, initial = driver.initial_tables(cfg, traffic, seed, device)
         out = {"workload": args.workload, "seed": seed}
         res = {}
         for precision in ("float32", "bfloat16"):
             t = time.perf_counter()
-            res[precision] = tpcc_fused.replay(cfg, traffic, initial, judged,
-                                               precision)
+            res[precision] = driver.replay(cfg, traffic, initial, judged,
+                                           precision)
             out[f"reference_s_{precision}"] = time.perf_counter() - t
         low = res["bfloat16"]
         numbers = judge.judge(res["float32"], dict(

@@ -1,6 +1,13 @@
 """TPC-C through ``repro_torch``'s fused executor: set-up, the timed
 window of passes, the traced passes and the check against the reference.
 
+The configuration's ``n_shards`` (R) shards the warehouses as the port's
+``Engine(n_shards=R)`` does, shard r the block of rows ``[r * W / R,
+(r + 1) * W / R)`` of every table, and every batch is R home-partitioned
+parts (``frozen/tpcc_inputs.py``). The merge regime takes any R that
+divides W and the batch; the escrow regime takes R = 1 alone, since its
+reference has no per-replica shares.
+
 Set-up (all of it in ``setup_s``): the initial tables' draws and the
 instance's pass stream on the host (``frozen/tpcc_inputs.py``), the
 judged pass's stream from the seed, the tables on the device with the
@@ -143,15 +150,25 @@ def window_passes(traffic: dict, seconds: float) -> int:
 def make_inputs(cfg: dict, traffic: dict, seed: int):
     """(scale, initial draws, the instance's stream, the judged stream).
     The initial draws and the instance's stream come from
-    ``INSTANCE_SEED`` and ``seed`` relabels them (``tpcc_inputs.relabel``):
-    every seed does the same work in the timed passes, in another layout.
-    The judged pass's stream is drawn from ``seed``. Both streams stamp
-    their New-Orders after the initial orders'."""
-    if cfg["n_shards"] != 1 or cfg.get("escrow_layout", "sparse") != "sparse":
-        raise SystemExit("portbench: tpcc_fused and its reference cover one "
-                         "shard and the sparse escrow layout")
+    ``INSTANCE_SEED`` and ``seed`` relabels them (``tpcc_inputs.relabel``,
+    within each shard): every seed does the same work in the timed
+    passes, in another layout. The judged pass's stream is drawn from
+    ``seed``. Both streams stamp their New-Orders after the initial
+    orders'. ``SystemExit`` where the reference does not cover the
+    configuration."""
+    R = cfg["n_shards"]
+    if cfg.get("escrow_layout", "sparse") != "sparse":
+        raise SystemExit(f"portbench: configuration {cfg['name']!r}: "
+                         "tpcc_fused and its reference cover the sparse "
+                         "escrow layout alone")
+    if cfg["regime"] == "escrow" and R != 1:
+        raise SystemExit(f"portbench: configuration {cfg['name']!r}: the "
+                         f"escrow regime at {R} shards needs per-replica "
+                         "shares, admission against each replica's share "
+                         "and the cross-replica refresh in the reference")
     traffic = traffic_of(traffic)
     scale = tpcc_inputs.Scale(**cfg["scale"])
+    tpcc_inputs.check_shards(scale, traffic["batch"], R, cfg["name"])
     draws = tpcc_inputs.initial_draws(
         scale, tpcc_inputs.rng_for(INSTANCE_SEED, 0), cfg["stock_multiplier"])
 
@@ -162,11 +179,11 @@ def make_inputs(cfg: dict, traffic: dict, seed: int):
             remote_frac=traffic["remote_frac"],
             item_skew=traffic["item_skew"], payments=traffic["payments"],
             reads=traffic["reads"], read_frac=traffic["read_frac"],
-            ts0=scale.customers)
+            ts0=scale.customers, n_shards=R)
 
     draws, instance = tpcc_inputs.relabel(
         scale, draws, stream(tpcc_inputs.rng_for(INSTANCE_SEED, 1)),
-        tpcc_inputs.rng_for(seed, 2))
+        tpcc_inputs.rng_for(seed, 2), R)
     return scale, draws, instance, stream(tpcc_inputs.rng_for(seed, 3))
 
 
@@ -287,7 +304,8 @@ def replay(cfg: dict, traffic: dict, initial: dict, stream,
                       regime=cfg["regime"], hot_items=cfg.get("hot_items"),
                       merge_every=traffic["merge_every"],
                       refresh_every=traffic["refresh_every"],
-                      deliveries=traffic["deliveries"], precision=precision)
+                      deliveries=traffic["deliveries"], precision=precision,
+                      n_shards=cfg["n_shards"])
 
 
 def read_program(state, esc, snap: dict, slots: int) -> dict:
@@ -328,7 +346,7 @@ def run(cfg: dict, traffic: dict, *, seed: int, seconds: float, trace: bool,
                   escrow_layout=cfg["escrow_layout"],
                   hot_items=cfg["hot_items"], admission=ADMISSION,
                   effects=EFFECTS, device=dev) if escrow
-           else Engine(port_scale, device=dev))
+           else Engine(port_scale, n_shards=cfg["n_shards"], device=dev))
     esc = eng.init_escrow(state) if escrow else None
     esc_snap = (esc.shares.clone(), esc.spent.clone()) if escrow else None
 

@@ -1,7 +1,15 @@
 """Frozen copies of the TPC-C input draws: the initial tables' random
 columns and the transaction streams, draw for draw as the port's
 ``repro_torch.txn.tpcc.init_state`` and ``generate_*`` /
+``neworder_batch`` / ``home_partitioned`` /
 ``txn.drivers.generate_mix_batches`` make them, as plain NumPy.
+
+A deployment of R warehouse shards keeps shard r's warehouses in the
+block ``[r * W / R, (r + 1) * W / R)``, and every batch of ``batch``
+transactions is R home-partitioned parts of ``batch / R`` rows,
+shard-major, each part's home warehouses drawn in its shard's block (the
+port's layout, ``tpcc.neworder_batch``). At R = 1 the one part is the
+whole batch over every warehouse.
 
 The benchmark makes every input here, from ``--seed``, and hands the same
 arrays to the program and to the reference. A test
@@ -62,6 +70,17 @@ def initial_draws(scale: Scale, rng: np.random.Generator,
     if stock_multiplier != 1:
         s_quantity *= np.int32(stock_multiplier)
     return InitialDraws(price, w_tax, d_tax, c_discount, s_quantity)
+
+
+def check_shards(scale: Scale, batch: int, n_shards: int, name: str
+                 ) -> None:
+    """``SystemExit`` naming the configuration ``name`` unless
+    ``n_shards`` divides both W and ``batch``."""
+    W = scale.n_warehouses
+    if n_shards < 1 or W % n_shards or batch % n_shards:
+        raise SystemExit(f"portbench: configuration {name!r}: {n_shards} "
+                         f"shards must divide its {W} warehouses and the "
+                         f"batch of {batch}")
 
 
 def item_popularity(n_items: int, theta: float) -> np.ndarray:
@@ -134,47 +153,65 @@ class PassStream:
 
 def pass_stream(rng, scale: Scale, *, batch: int, n_batches: int,
                 remote_frac: float, item_skew: float, payments: bool,
-                reads: bool, read_frac: float, ts0: int = 0) -> PassStream:
-    """A pass's stream on one shard that holds every warehouse, its
-    New-Order stamps from ``ts0`` on. With ``reads`` the draws are
-    ``generate_mix_batches``' (a New-Order, a Payment, an Order-Status and a
-    Stock-Level batch a step, one generator); without, ``run_loop``'s (the
-    New-Order batches, then with ``payments`` the Payment batches)."""
-    W = scale.n_warehouses
+                reads: bool, read_frac: float, ts0: int = 0,
+                n_shards: int = 1) -> PassStream:
+    """A pass's stream over ``n_shards`` shards, its New-Order stamps from
+    ``ts0`` on, each shard's part stamped after the previous part's
+    (``tpcc.neworder_batch``). A batch is ``n_shards`` parts of ``batch /
+    n_shards`` rows, part r homed in shard r's block; supply warehouses
+    stay drawn over all W. With ``reads`` the draws are
+    ``generate_mix_batches``' (a New-Order, a Payment, an Order-Status and
+    a Stock-Level batch a step, one generator, each batch part by part);
+    without, ``run_loop``'s (the New-Order batches, then with
+    ``payments`` the Payment batches). ``batch`` must divide by
+    ``n_shards`` (``check_shards``)."""
+    Wps, per = scale.n_warehouses // n_shards, batch // n_shards
     cdf = (np.cumsum(item_popularity(scale.n_items, item_skew))
            if item_skew > 0 else None)
 
+    def parts(gen, rows, **kw):
+        bs = [gen(rng, scale, rows, r * Wps, (r + 1) * Wps, **kw)
+              for r in range(n_shards)]
+        return {k: np.concatenate([b[k] for b in bs]) for k in bs[0]}
+
     def no_batch():
         nonlocal ts0
-        b = neworder(rng, scale, batch, remote_frac, 0, W, ts0, item_skew,
-                     cdf)
-        ts0 += batch
-        return b
+        bs = []
+        for r in range(n_shards):
+            bs.append(neworder(rng, scale, per, remote_frac, r * Wps,
+                               (r + 1) * Wps, ts0, item_skew, cdf))
+            ts0 += per
+        return {k: np.concatenate([b[k] for b in bs]) for k in bs[0]}
 
     if reads:
-        per_reads = max(1, int(batch * read_frac))
+        per_reads = max(1, int(per * read_frac))
         no, pay, os_, sl = [], [], [], []
         for _ in range(n_batches):
             no.append(no_batch())
-            pay.append(payment(rng, scale, batch, 0, W))
-            os_.append(order_status(rng, scale, per_reads, 0, W))
-            sl.append(stock_level(rng, scale, per_reads, 0, W))
+            pay.append(parts(payment, per))
+            os_.append(parts(order_status, per_reads))
+            sl.append(parts(stock_level, per_reads))
         return PassStream(no, pay if payments else None, os_, sl)
     no = [no_batch() for _ in range(n_batches)]
-    pay = ([payment(rng, scale, batch, 0, W) for _ in range(n_batches)]
+    pay = ([parts(payment, per) for _ in range(n_batches)]
            if payments else None)
     return PassStream(no, pay, None, None)
 
 
 def relabel(scale: Scale, draws: InitialDraws, stream: PassStream,
-            rng: np.random.Generator) -> tuple[InitialDraws, PassStream]:
-    """The same instance under new names: warehouses, districts and
-    customers permuted, in the tables and in every batch alike. Items keep
-    their ids (popularity is by id). Every transaction meets the same
+            rng: np.random.Generator, n_shards: int = 1
+            ) -> tuple[InitialDraws, PassStream]:
+    """The same instance under new names: warehouses permuted within each
+    of the ``n_shards`` shards' blocks, districts and customers permuted,
+    in the tables and in every batch alike. Items keep their ids
+    (popularity is by id). Every row keeps its home shard and every line
+    its local or cross-shard supply, and every transaction meets the same
     stock and makes the same choices, so the work, the aborts and the
     floats are the instance's, in another layout."""
     W, D, C = scale.n_warehouses, scale.districts, scale.customers
-    pw = rng.permutation(W).astype(np.int32)
+    Wps = W // n_shards
+    pw = np.concatenate([r * Wps + rng.permutation(Wps)
+                         for r in range(n_shards)]).astype(np.int32)
     pd = rng.permutation(D).astype(np.int32)
     pc = rng.permutation(C).astype(np.int32)
 

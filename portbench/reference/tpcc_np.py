@@ -13,8 +13,16 @@ share refresh). It imports nothing of the program and takes nothing it
 made: hot keys, shares, o_ids, amounts and counters are worked out here
 again.
 
-It covers one shard that holds every warehouse, where every supply
-warehouse is local and the outbox stays empty.
+The warehouses lie in ``n_shards`` (R) shards, shard r holding the block
+``[r * W / R, (r + 1) * W / R)``. A New-Order's rows are stamped
+``ts * R + r`` by its home shard r (the RAMP stamp). A line whose supply
+warehouse is in the home shard is local: it applies at once, with the
+batch's other local lines, and the restock rule follows on the cells it
+touched. Every other committed line goes to the outbox; at the chunk's
+drain each owner adds its entries (``s_remote_cnt`` + 1 each) and then
+restocks. At R = 1 every line is local and the drain applies nothing.
+The escrow regime covers R = 1 alone: at R > 1 it would need each
+replica's share, admission against it and the cross-replica refresh.
 
 ``precision="bfloat16"`` rounds every float result to bfloat16 (the
 control that must come out as not correct).
@@ -55,6 +63,7 @@ class PassResult:
     spent: np.ndarray | None    # [1, K]
     read_lines: list   # per Order-Status batch: (rows, needed, matched,
     #                    matched but invisible, returned) lines
+    drained: int = 0   # cross-shard lines the drains applied
 
 
 def written_slots(d_next_o_id, stream, order_capacity: int) -> int:
@@ -72,10 +81,12 @@ def written_slots(d_next_o_id, stream, order_capacity: int) -> int:
 
 def replay(initial: dict, stream, *, order_capacity: int, regime: str,
            hot_items: int | None, merge_every: int, refresh_every: int,
-           deliveries: bool, precision: str = "float32") -> PassResult:
+           deliveries: bool, precision: str = "float32",
+           n_shards: int = 1) -> PassResult:
     """Replay one pass from ``initial`` (column -> array, the order
-    columns cut to ``written_slots``); ``regime`` is "merge" or "escrow"
-    (sparse layout over the ``hot_items`` most popular ids)."""
+    columns cut to ``written_slots``) over ``n_shards`` warehouse shards;
+    ``regime`` is "merge" or "escrow" (sparse layout over the
+    ``hot_items`` most popular ids, one shard)."""
     OC = order_capacity
     rnd = _bf16 if precision == "bfloat16" else (
         lambda x: np.asarray(x, dtype=np.float32))
@@ -84,6 +95,10 @@ def replay(initial: dict, stream, *, order_capacity: int, regime: str,
     I = t["s_quantity"].shape[1]
     L = t["ol_valid"].shape[3]
     f32, i32 = np.float32, np.int32
+    R = n_shards
+    if W % R:
+        raise ValueError(f"{W} warehouses do not divide into {R} shards")
+    Wps = W // R
 
     # a customer's latest order: the highest o_id among its valid orders
     last_order = np.full((W, D, C), -1, np.int64)
@@ -91,6 +106,12 @@ def replay(initial: dict, stream, *, order_capacity: int, regime: str,
     np.maximum.at(last_order, (wv, dv, t["o_c_id"][wv, dv, sv]), sv)
 
     escrow = regime == "escrow"
+    if escrow and R > 1:
+        raise ValueError("the escrow regime's reference covers one shard: "
+                         "per-replica shares are not modelled")
+    # the chunk's cross-shard lines: (supply warehouse, item, quantity)
+    outbox: list = []
+    drained = 0
     if escrow:
         # the hot set: the hot_items most popular ids (popularity is by id)
         # crossed with every warehouse, w-major
@@ -164,13 +185,14 @@ def replay(initial: dict, stream, *, order_capacity: int, regime: str,
         lvc = lv[c]
         amount = np.where(lvc, rnd(t["i_price"][wc[:, None], b["i_id"][c]]
                                    * b["qty"][c].astype(f32)), f32(0))
-        ts = b["ts"][c]                      # one replica: the stamp is ts
+        home = w[c] // Wps
+        ts = b["ts"][c] * R + home           # the RAMP stamp of shard home
         at = (wc, dc, oc)
         t["o_valid"][at] = True
         t["o_c_id"][at] = b["c"][c]
         t["o_ol_cnt"][at] = b["n_lines"][c]
         t["o_carrier"][at] = -1
-        t["o_entry_d"][at] = ts
+        t["o_entry_d"][at] = b["ts"][c]
         t["no_valid"][at] = True
         t["o_ts"][at] = ts
         t["ol_valid"][at] = lvc
@@ -181,8 +203,13 @@ def replay(initial: dict, stream, *, order_capacity: int, regime: str,
         t["ol_ts"][at] = np.where(lvc, ts[:, None], -1)
         t["ol_vis"][at] = lvc
         last_order[wc, dc, b["c"][c]] = oc
-        # stock: every committed valid line is local to the one shard
+        # stock: committed valid lines supplied in the home shard apply
+        # now; the others go to the outbox
         m = lv & ok[:, None]
+        cross = m & (b["supply_w"] // Wps != (w // Wps)[:, None])
+        outbox.append((b["supply_w"][cross], b["i_id"][cross],
+                       b["qty"][cross]))
+        m &= ~cross
         sw, si, q = b["supply_w"][m], b["i_id"][m], b["qty"][m]
         remote = (b["supply_w"] != w[:, None])[m]
         np.add.at(t["s_quantity"], (sw, si), -q)
@@ -300,11 +327,23 @@ def replay(initial: dict, stream, *, order_capacity: int, regime: str,
                 stock_level(stream.stock_level[s])
             if deliveries:
                 delivery()
-        # the drain: one shard holds every warehouse, so no line went to
-        # the outbox and the drain applies nothing; the escrow regime then
-        # refreshes the shares from the stock
+        # the drain: each owner adds the outbox's entries in its block,
+        # each a remote line, then restocks; the escrow regime (one shard,
+        # an empty outbox) then refreshes the shares from the stock
+        sw, si, q = (np.concatenate(x) for x in zip(*outbox))
+        outbox.clear()
+        drained += len(sw)
+        for r in range(R):
+            own = sw // Wps == r
+            ow, oi, oq = sw[own], si[own], q[own]
+            np.add.at(t["s_quantity"], (ow, oi), -oq)
+            np.add.at(t["s_ytd"], (ow, oi), oq.astype(f32))
+            np.add.at(t["s_order_cnt"], (ow, oi), 1)
+            np.add.at(t["s_remote_cnt"], (ow, oi), 1)
+            if not escrow:
+                restock(ow, oi)
         if escrow and (ci + 1) % refresh_every == 0:
             shares = t["s_quantity"].reshape(-1)[keys].astype(i32)[None, :]
             spent = np.zeros_like(shares)
     return PassResult(t, cnt, shares if escrow else None,
-                      spent if escrow else None, read_lines)
+                      spent if escrow else None, read_lines, drained)

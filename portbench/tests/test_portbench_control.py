@@ -5,9 +5,8 @@ correct."""
 
 import pytest
 
-from portbench.drivers import tpcc_fused
 from portbench.reference import judge
-from portbench.tests.tiny import CELLS, cell
+from portbench.tests.tiny import CELLS, cell, driver
 
 
 def _as_program(res):
@@ -17,8 +16,9 @@ def _as_program(res):
 
 def _replay(workload, seed, precision):
     cfg, traffic = cell(workload)
-    judged, initial = tpcc_fused.initial_tables(cfg, traffic, seed, "cpu")
-    return cfg, tpcc_fused.replay(cfg, traffic, initial, judged, precision)
+    mod = driver(cfg)
+    judged, initial = mod.initial_tables(cfg, traffic, seed, "cpu")
+    return cfg, mod.replay(cfg, traffic, initial, judged, precision)
 
 
 @pytest.mark.parametrize("workload", CELLS)

@@ -1,7 +1,8 @@
 """The run with the timed path broken underneath comes out not correct,
-once for each fault the cells can have. One shard holds every warehouse,
-so the drain exchanges nothing between shards there; the exchange the
-escrow cells do have is the share refresh, left out below."""
+once for each fault the cells can have. Where one shard holds every
+warehouse, the drain exchanges nothing between shards; the exchange the
+escrow cells do have is the share refresh, left out below. The faults of
+the drain's exchange at R > 1 are in ``test_portbench_shards.py``."""
 
 import pytest
 import torch
@@ -10,7 +11,7 @@ from repro_torch.txn import tpcc
 from repro_torch.txn.engine import Engine
 from repro_torch.txn.executor import FusedExecutor
 
-from portbench.tests.tiny import CELLS, drive
+from portbench.tests.tiny import CELLS, cell, drive
 
 
 def _unchanged(monkeypatch):
@@ -19,29 +20,34 @@ def _unchanged(monkeypatch):
 
 
 def _half_batch(monkeypatch):
-    """New-Order on the first half of each batch, the rest left out (its
-    outputs padded to the batch's shapes, as nothing downstream checks)."""
-    def half(batch):
-        n = batch.w.shape[0] // 2
-        return type(batch)(*(x[:n] for x in batch))
+    """New-Order on the first half of each shard's part of each batch, the
+    rest left out (its outputs padded, shard by shard, to the batch's
+    shapes with zeros: outbox entries that are not valid, no commit)."""
+    def half(batch, n_shards):
+        def cut(x):
+            part = x.view(n_shards, -1, *x.shape[1:])
+            return part[:, :part.shape[1] // 2].reshape(-1, *x.shape[1:])
+        return type(batch)(*(cut(x) for x in batch))
 
-    def pad(x, n):
+    def pad(x, n_shards, n):
         if isinstance(x, tuple):
-            return type(x)(*(pad(y, n) for y in x))
-        return torch.cat([x, x[:n - x.shape[0]]])
+            return type(x)(*(pad(y, n_shards, n) for y in x))
+        part = x.view(n_shards, -1)
+        zero = part.new_zeros((n_shards, n // n_shards - part.shape[1]))
+        return torch.cat([part, zero], 1).reshape(-1)
 
     merge, escrow = Engine.neworder_step, Engine.neworder_escrow_step
 
     def merge_half(self, s, b):
-        st, delta, total = merge(self, s, half(b))
-        B = b.w.shape[0]
-        return st, pad(delta, B * b.i_id.shape[1]), pad(total, B)
+        R, B = self.n_shards, b.w.shape[0]
+        st, delta, total = merge(self, s, half(b, R))
+        return st, pad(delta, R, B * b.i_id.shape[1]), pad(total, R, B)
 
     def escrow_half(self, s, e, b):
-        st, es, delta, total, ok = escrow(self, s, e, half(b))
-        B = b.w.shape[0]
-        return (st, es, pad(delta, B * b.i_id.shape[1]), pad(total, B),
-                pad(ok, B))
+        R, B = self.n_shards, b.w.shape[0]
+        st, es, delta, total, ok = escrow(self, s, e, half(b, R))
+        return (st, es, pad(delta, R, B * b.i_id.shape[1]),
+                pad(total, R, B), pad(ok, R, B))
     monkeypatch.setattr(Engine, "neworder_step", merge_half)
     monkeypatch.setattr(Engine, "neworder_escrow_step", escrow_half)
 
@@ -65,13 +71,29 @@ def _altered(monkeypatch):
     monkeypatch.setattr(tpcc, "_insert_order_rows", altered)
 
 
+def _no_exchange(monkeypatch):
+    """The drain's exchange between shards left out: no owner applies the
+    cross-shard deltas."""
+    monkeypatch.setattr(Engine, "anti_entropy", lambda self, state, o: state)
+
+
 FAULTS = {"unchanged": _unchanged, "half_batch": _half_batch,
-          "no_refresh": _no_refresh, "altered": _altered}
+          "no_refresh": _no_refresh, "altered": _altered,
+          "no_exchange": _no_exchange}
 
 
-# the merge regime has no share refresh
-CASES = [(w, f) for w in CELLS for f in FAULTS
-         if f != "no_refresh" or w.startswith("escrow")]
+def _applies(workload: str, fault: str) -> bool:
+    """The merge regime has no share refresh; one shard has no exchange
+    between shards."""
+    cfg = cell(workload)[0]
+    if fault == "no_refresh":
+        return cfg["regime"] == "escrow"
+    if fault == "no_exchange":
+        return cfg["n_shards"] > 1
+    return True
+
+
+CASES = [(w, f) for w in CELLS for f in FAULTS if _applies(w, f)]
 
 
 @pytest.mark.parametrize("workload,fault", CASES)

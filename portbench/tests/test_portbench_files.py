@@ -11,7 +11,7 @@ from pathlib import Path
 import pytest
 
 from portbench import run
-from portbench.tests.tiny import BENCH, CELLS, ROOT
+from portbench.tests.tiny import BENCH, CELLS, ROOT, driver
 
 PKG = ROOT / "portbench"
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -24,9 +24,7 @@ def test_cell_files_found_by_name(workload):
     assert (PKG / "reference" / f"{cfg['reference']}.py").is_file()
     assert {"scale", "regime", "n_shards", "guarantees", "source",
             "reduced", "assumed"} <= set(cfg)
-    from portbench.drivers import tpcc_fused
-
-    assert set(traffic) - {"about"} <= set(tpcc_fused.TRAFFIC)
+    assert set(traffic) - {"about"} <= set(driver(cfg).TRAFFIC)
     for m in run.metrics_of(BENCH, workload, False) + \
             run.metrics_of(BENCH, workload, True):
         mod = run._load(PKG / "metrics" / f"{m['name']}.py", m["name"])

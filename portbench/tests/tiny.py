@@ -1,8 +1,12 @@
 """A tiny size of every cell, for the CPU tests: the cell's own files with
-the scale and the pass cut down, nothing else changed."""
+the scale and the pass cut down, nothing else changed. Each cell is
+reached through its configuration: the driver its ``driver`` key names,
+and through that driver's ``replay`` the reference its ``reference`` key
+names."""
 
 from __future__ import annotations
 
+import importlib
 import json
 import time
 from pathlib import Path
@@ -15,10 +19,20 @@ SCALE = dict(n_warehouses=3, districts=2, customers=16, n_items=300,
              order_capacity=64, max_lines=15)
 
 
+def warehouses(n_shards: int) -> int:
+    """The tiny warehouse count: the least of at least 3 that the shards
+    divide (3 at one shard, 4 at two or four)."""
+    w = SCALE["n_warehouses"]
+    while w % n_shards:
+        w += 1
+    return w
+
+
 def tiny(cfg: dict, traffic: dict) -> tuple[dict, dict]:
     """The cell at a tiny size: stock x1 so the escrow cells sell out and
     abort."""
-    cfg = dict(cfg, scale=dict(SCALE), hot_items=6, stock_multiplier=1)
+    scale = dict(SCALE, n_warehouses=warehouses(cfg["n_shards"]))
+    cfg = dict(cfg, scale=scale, hot_items=6, stock_multiplier=1)
     traffic = dict(traffic, batch=8, batches_per_pass=6, merge_every=2)
     return cfg, traffic
 
@@ -30,10 +44,18 @@ def cell(workload: str):
     return tiny(cfg, traffic)
 
 
-def drive(workload: str, seed: int, seconds: float = 0.02):
-    """The driver's record of one run on the CPU at the tiny size."""
-    from portbench.drivers import tpcc_fused
+def driver(cfg: dict):
+    """The driver module the configuration names."""
+    return importlib.import_module(f"portbench.drivers.{cfg['driver']}")
 
-    cfg, traffic = cell(workload)
-    return tpcc_fused.run(cfg, traffic, seed=seed, seconds=seconds,
-                          trace=False, device="cpu", t0=time.perf_counter())
+
+def drive_cfg(cfg: dict, traffic: dict, seed: int, seconds: float = 0.02):
+    """The named driver's record of one run on the CPU."""
+    return driver(cfg).run(cfg, traffic, seed=seed, seconds=seconds,
+                           trace=False, device="cpu", t0=time.perf_counter())
+
+
+def drive(workload: str, seed: int, seconds: float = 0.02):
+    """The driver's record of one run of the cell on the CPU at the tiny
+    size."""
+    return drive_cfg(*cell(workload), seed, seconds)

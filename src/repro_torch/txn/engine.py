@@ -36,6 +36,7 @@ coordination, and :class:`Engine` elsewhere.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -262,11 +263,14 @@ class Engine:
         return (state, cat_shards([o[0] for o in outs]),
                 cat_shards([o[1] for o in outs]))
 
-    def anti_entropy(self, state: TPCCState, outbox: StockDelta) -> TPCCState:
+    def anti_entropy(self, state: TPCCState, outbox: StockDelta,
+                     span=contextlib.nullcontext) -> TPCCState:
         """Gather every shard's outbox and apply the entries each owner
-        holds (with restock in the merge regime)."""
+        holds (with restock in the merge regime); ``span`` as
+        :func:`gather_and_apply_outbox`'s."""
         return gather_and_apply_outbox(state, outbox, self.w_per_shard,
-                                       self.n_shards, restock=self._restock)
+                                       self.n_shards, restock=self._restock,
+                                       span=span)
 
     def owned_lanes(self, outbox) -> torch.Tensor:
         """The lanes of ``outbox`` (any shape: a flat outbox or the
@@ -584,16 +588,22 @@ def _owned_by(g: StockDelta, r: int, w_per_shard: int) -> torch.Tensor:
 
 def gather_and_apply_outbox(state: TPCCState, outbox: StockDelta,
                             w_per_shard: int, n_shards: int = 1,
-                            restock: bool = True) -> TPCCState:
+                            restock: bool = True,
+                            span=contextlib.nullcontext) -> TPCCState:
     """The anti-entropy body: all-gather the outboxes, then every owner
     applies the entries in its slice. Every outbox entry is, by
-    construction, remote to its owner."""
-    g = _gather_outbox(outbox, n_shards)
+    construction, remote to its owner. ``span`` (a phase name to a
+    context manager) wraps the gather in ``outbox-gather`` and each
+    owner's apply in ``owner-apply``."""
+    with span("outbox-gather"):
+        g = _gather_outbox(outbox, n_shards)
     for r in range(n_shards):
-        own = _owned_by(g, r, w_per_shard)
-        tpcc.apply_stock_updates(shard_view(state, r, w_per_shard),
-                                 g.dst_w - r * w_per_shard, g.i_id, g.qty,
-                                 own, torch.ones_like(own), restock=restock)
+        with span("owner-apply"):
+            own = _owned_by(g, r, w_per_shard)
+            tpcc.apply_stock_updates(shard_view(state, r, w_per_shard),
+                                     g.dst_w - r * w_per_shard, g.i_id,
+                                     g.qty, own, torch.ones_like(own),
+                                     restock=restock)
     return state
 
 

@@ -467,10 +467,17 @@ class FusedExecutor:
         return StockDelta(*(x.view(rows, n, width // n).transpose(0, 1)
                             .reshape(-1) for x in ring))
 
-    def drain(self, state: TPCCState, ring: OutboxRing):
+    def drain(self, state: TPCCState, ring: OutboxRing,
+              span=contextlib.nullcontext):
         """Anti-entropy over the whole ring (merge regime: restocking
-        apply); clears its valid bits. Returns (state, ring)."""
-        state = self.engine.anti_entropy(state, self._flat(ring))
+        apply); clears its valid bits. Returns (state, ring). ``span``
+        wraps the gather and each owner's apply (``Engine.anti_entropy``);
+        without one the engine is called in its two-argument form, the
+        one that stand-ins for its drain (the benchmark's faults) keep."""
+        flat = self._flat(ring)
+        state = (self.engine.anti_entropy(state, flat)
+                 if span is contextlib.nullcontext
+                 else self.engine.anti_entropy(state, flat, span))
         ring.valid.zero_()
         return state, ring
 
@@ -529,8 +536,9 @@ class FusedExecutor:
         the metrics-off graph, and after the wall clock stops each chunk's
         record and one counter fold run from the chunks' own batches; the
         joins commute, so that equals recording inline, and the timed loop
-        launches nothing more. On the card the call's set-up and close are
-        spans too (:meth:`_spans`)."""
+        launches nothing more. On the card the call's set-up and close,
+        and each timed drain's gather and owner applies, are spans too
+        (:meth:`_spans`)."""
         span, call_span = self._spans(obs)
         with call_span("call-setup"):
             if self._escrow:
@@ -564,7 +572,8 @@ class FusedExecutor:
             if live is not None:
                 live.add_(eng.owned_lanes(ring))
             with span("outbox-drain"):
-                self._timed("drain_ms", lambda: self.drain(state, ring))
+                self._timed("drain_ms",
+                            lambda: self.drain(state, ring, call_span))
                 if obs is not None:
                     obs.maybe_sync(ring)
         synchronize(eng.device)
@@ -584,7 +593,9 @@ class FusedExecutor:
         set-up (``call-setup``: ``release``, ``buffers``, ``warm``, a
         ``capture`` a graph with ``capture-wait``, ``collect``,
         ``cache-release`` and ``graph-record``, then ``loop-wait``) and
-        its close after the wall clock stops (``call-close``). The second
+        its close after the wall clock stops (``call-close``); in
+        :meth:`run`, inside each timed ``outbox-drain``, the gather
+        (``outbox-gather``) and an ``owner-apply`` a shard. The second
         is the first on the card and a null one on the CPU, which captures
         and waits for nothing and keeps the JAX package's phases. Both are
         null without a session (``nullcontext(phase)``)."""

@@ -1010,6 +1010,42 @@ def test_call_spans_on_the_card(cuda, regime):
     assert not set(summary.kernel_s) & set(CALL_SPANS)
 
 
+@pytest.mark.parametrize("R", [1, 4])
+def test_drain_spans_on_the_card(card, R):
+    """A traced merge run at R shards opens, inside each timed
+    ``outbox-drain``, one ``outbox-gather`` and an ``owner-apply`` a
+    shard (the warm-up's drain none); its final tables and counters are
+    bit-equal to the same run without a session."""
+    from repro_torch.obs import ObsSession
+    from repro_torch.txn.drivers import generate_mix_batches
+    from repro_torch.txn.engine import Engine
+    from repro_torch.txn.executor import FusedExecutor, stack_chunks
+
+    scale = tpcc.TPCCScale(n_warehouses=8, districts=2, customers=8,
+                           n_items=64, order_capacity=64, max_lines=15)
+    e = Engine(scale, n_shards=R, device=card)
+    no_b = generate_mix_batches(e, batch_per_shard=8, n_batches=6,
+                                remote_frac=0.3, seed=5)[0]
+    chunks = stack_chunks(no_b, None, None, None, 2)
+    ex = FusedExecutor(e, ring_rows=2)
+    finals = {}
+    for traced in (False, True):
+        state = tpcc.init_state(scale, device=card)
+        obs = ObsSession(metrics=False, trace=True) if traced else None
+        state, counters, _ = ex.run(state, chunks, obs=obs)
+        finals[traced] = [x.cpu() for x in (*state, *counters)]
+    phases = obs.tracer.phases
+    drains = phases["outbox-drain"].count
+    assert drains == 3 and phases["outbox-drain"].parent is None
+    assert {k: (phases[k].parent, phases[k].count)
+            for k in ("outbox-gather", "owner-apply")} == {
+        "outbox-gather": ("outbox-drain", drains),
+        "owner-apply": ("outbox-drain", R * drains)}
+    assert int(counters.neworders.sum()) > 0
+    assert all(torch.equal(a, b) for a, b in zip(finals[False],
+                                                 finals[True]))
+
+
 def test_item_access_scatter_on_the_card_matches_the_cpu(cuda):
     """Full width: 8 steps x 256 New-Orders x 15 lines against 100,000
     items takes the scatter branch (``index_add_`` on int32); on the card

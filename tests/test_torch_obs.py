@@ -847,6 +847,43 @@ def test_cpu_executor_call_opens_only_the_reference_phases(name, ref):
     assert all(p.parent is None for p in obs.tracer.phases.values())
 
 
+@pytest.mark.parametrize("R", [1, 4])
+def test_drain_spans_wrap_the_gather_and_each_owner(R):
+    """A merge drain handed a span factory opens one ``outbox-gather`` and
+    an ``owner-apply`` a shard, under the span open around it, and leaves
+    the stock tables bit-equal to the drain without spans; at R = 4 the
+    cross-shard lines move the stock."""
+    e = _engine(SCALE, R=R)
+    ex = get_fused_executor(e, ring_rows=2)
+    from repro_torch.txn.drivers import generate_mix_batches
+    from repro_torch.txn.executor import stack_chunks
+
+    no_b = generate_mix_batches(e, batch_per_shard=8, n_batches=2,
+                                remote_frac=0.5, seed=7)[0]
+    chunk = stack_chunks(no_b, None, None, None, 2)[0]
+    base = tt.init_state(e.scale, device="cpu")
+    ring = ex.init_ring(8)
+    ex.megastep(base, ring, ex.init_counters(), chunk)
+    tr = PhaseTracer(enabled=True)
+    finals = []
+    for span in (None, tr.span):
+        state, r = tt.copy_tree(base), tt.copy_tree(ring)
+        if span is None:
+            ex.drain(state, r)
+        else:
+            with tr.span("outbox-drain"):
+                ex.drain(state, r, span)
+        finals.append(state)
+    assert {k: (p.parent, p.count) for k, p in tr.phases.items()} == {
+        "outbox-drain": (None, 1), "outbox-gather": ("outbox-drain", 1),
+        "owner-apply": ("outbox-drain", R)}
+    cols = ("s_quantity", "s_ytd", "s_order_cnt", "s_remote_cnt")
+    for c in cols:
+        assert torch.equal(getattr(finals[0], c), getattr(finals[1], c)), c
+    moved = not torch.equal(base.s_remote_cnt, finals[1].s_remote_cnt)
+    assert moved == (R > 1)
+
+
 def test_tracer_keeps_one_parent_a_phase():
     """A phase opened under another parent than its first raises, before
     its body runs, and leaves the tracer's phases as they were."""

@@ -15,6 +15,11 @@ under ``shard_map``, so the host enters once a chunk. Here:
   kernel and torch op of every shard. On the CPU, which only a caller that
   asks for it gets, the chunk runs eagerly. There is no other path: a
   capture or a replay that fails raises.
+* **the kept set-up** — a call keeps its ring, counters, commit-mask
+  buffer and graphs on the executor, under a key made of what its inputs
+  show (:meth:`FusedExecutor._key`); the next call with the same key
+  zeroes them in place and replays the kept graphs, and a call with
+  another key captures anew, as the first did.
 * **the drain** — between chunks, at the host's cadence, one batched
   anti-entropy call applies the whole ring, gathered shard-major as the
   reference's ``all_gather`` of its ``[rows, R]`` ring lays it out; in the
@@ -24,7 +29,8 @@ under ``shard_map``, so the host enters once a chunk. Here:
 * **fixed buffers** — state, escrow, ring, counters and the retry ring are
   updated in place for the whole run, the analogue of donation: the graph
   holds their addresses, and the refresh writes the new shares into the
-  escrow's own tensors (``Engine.refresh_escrow``).
+  escrow's own tensors (``Engine.refresh_escrow``). A run returns a copy
+  of its counters, which the next call's reset leaves alone.
 * **observability** — ``run(obs=)`` and ``run_escrow(obs=)`` take a
   ``repro_torch.obs.ObsSession``: tracer spans around each replay and
   each drain (on the card also around the call's set-up, its captures
@@ -170,6 +176,19 @@ class OkBuffer(NamedTuple):
         return OkBuffer(self.buf.clone(), self.cursor.clone())
 
 
+class _Kept(NamedTuple):
+    """A call's set-up, kept for the next call with the same ``key``: the
+    buffers its graphs were captured on (``live``: state, ring, counters,
+    escrow), its :class:`OkBuffer` and its graphs by chunk length ({} on
+    the CPU). It holds every tensor the key names, so no address in the
+    key is reused while it is kept."""
+
+    key: tuple
+    live: tuple
+    oks: OkBuffer | None
+    graphs: dict
+
+
 def launch_counts() -> Counter:
     """Each chunk kernel's launch count (its wrapper's ``launches``)."""
     return Counter({k.__name__: k.launches for k in KERNELS})
@@ -242,9 +261,16 @@ class FusedExecutor:
     drain windows (a knob of :meth:`run_escrow`) before they count as final
     rejects.
 
+    A run captures its graphs when its key changes, not once a call: it
+    keeps them with the ring, counters and commit-mask buffer they were
+    captured on, and the next run over the same tables, batch shapes and
+    Payment rounds zeroes those buffers in place and replays the same
+    graphs (:meth:`_key`). One set-up is kept, the newest.
+
     After a run on the card, ``last_run`` holds the run's graphs by chunk
-    length (their launches, pool bytes and replays) and, from CUDA events,
-    each chunk replay's and each drain's milliseconds. After a run whose
+    length (their launches, pool bytes and this run's replays) and, from
+    CUDA events, each chunk replay's and each drain's milliseconds. After a
+    run whose
     session wants metrics (card or CPU) it also holds ``drain_lanes`` and
     ``drain_live_lanes``: how many lanes the drains' stock scatters took,
     and how many of them carried work.
@@ -261,6 +287,7 @@ class FusedExecutor:
         self._sparse = self._escrow and eng.escrow_layout == "sparse"
         self._cuda = eng.device.type == "cuda"
         self.last_run: dict = {}
+        self._kept: _Kept | None = None
         if self.retry_cap > 0 and not self._sparse:
             raise ValueError("retry_cap > 0 requires the sparse "
                              "(two-tier) escrow layout — the retry ring "
@@ -382,23 +409,99 @@ class FusedExecutor:
             raise RuntimeError("capture before the admission probe was "
                                "resolved: the warm-up resolves it")
 
-    def _prepare(self, state, ring, counters, esc, chunks,
-                 oks: OkBuffer | None = None, span=contextlib.nullcontext):
-        """The run's graphs, one a distinct chunk length, each captured in
-        a "capture" span (the card); {} on the CPU."""
+    @staticmethod
+    def _lengths(chunks) -> dict:
+        """Each distinct chunk length's first chunk and the Payment rounds
+        its graph records: the stream's deepest Payment of that length
+        (extra rounds are no-ops, so one graph serves every chunk)."""
+        out = {}
+        for T in sorted({c.chunk_len for c in chunks}):
+            same = [c for c in chunks if c.chunk_len == T]
+            out[T] = same[0], max(c.pay_rounds for c in same)
+        return out
+
+    def _capture(self, live, chunks, oks: OkBuffer | None = None,
+                 span=contextlib.nullcontext) -> dict:
+        """Graphs on ``live``, one a distinct chunk length, each captured
+        in a "capture" span (the card); {} on the CPU."""
         if not self._cuda:
             return {}
         graphs = {}
-        live = (state, ring, counters, esc)
-        for T in sorted({c.chunk_len for c in chunks}):
-            same = [c for c in chunks if c.chunk_len == T]
-            self._check_resolved(same[0])
-            # the stream's deepest Payment of this length: extra rounds
-            # are no-ops, so one graph serves every chunk
-            rounds = max(c.pay_rounds for c in same)
+        for T, (first, rounds) in self._lengths(chunks).items():
+            self._check_resolved(first)
             with span("capture"):
-                graphs[T] = _Graph(self, T, same[0], rounds, live, oks, span)
-        self.last_run = dict(graphs=graphs, chunk_ms=[], drain_ms=[])
+                graphs[T] = _Graph(self, T, first, rounds, live, oks, span)
+        return graphs
+
+    def _start(self, graphs) -> None:
+        """``last_run`` for a call on the card: its graphs and the lists
+        its CUDA events go to."""
+        if self._cuda:
+            self.last_run = dict(graphs=dict(graphs), chunk_ms=[],
+                                 drain_ms=[])
+
+    def _key(self, state, esc, chunks, ok_chunks) -> tuple:
+        """What a call's set-up is made on, as its inputs show it: each
+        live tensor's address, shape, dtype and stride (the state and the
+        escrow), the batch width a shard, for each chunk length the input
+        batches' shapes and dtypes (None for an absent Payment,
+        Order-Status or Stock-Level) and the Payment rounds its graph
+        records, and ``ok_chunks``, a metrics-on escrow run's chunk count
+        (None without one). A call with the last call's key replays its
+        graphs on its buffers."""
+        def shapes(batch):
+            return None if batch is None else tuple(
+                (tuple(x.shape), x.dtype) for x in batch)
+
+        live = (*state, *(() if esc is None else esc))
+        return (tuple((x.data_ptr(), tuple(x.shape), x.dtype, x.stride())
+                      for x in live),
+                chunks[0].neworder.w.shape[1] // self.engine.n_shards,
+                tuple((T, tuple(map(shapes, first[:4])), rounds)
+                      for T, (first, rounds) in self._lengths(chunks).items()),
+                ok_chunks)
+
+    def _release(self, key: tuple, span):
+        """The kept set-up when its key is ``key``, else None. On a miss the
+        old one is dropped here, in the "release" span, so that none of its
+        graphs is freed in the middle of the next capture."""
+        kept = self._kept
+        with span("release"):
+            self.last_run = {}
+            if kept is not None and kept.key != key:
+                kept = self._kept = None
+        return kept
+
+    def _buffers(self, kept: _Kept | None, chunks, ok_chunks):
+        """(ring, counters, OkBuffer or None): the kept ones, zeroed in
+        place, or new ones."""
+        if kept is not None:
+            _, ring, counters, _ = kept.live
+            for x in (*ring, *counters, *(kept.oks or ())):
+                x.zero_()
+            return ring, counters, kept.oks
+        eng = self.engine
+        ring = self.init_ring(chunks[0].neworder.w.shape[1] // eng.n_shards)
+        oks = None if ok_chunks is None else OkBuffer(
+            torch.zeros((ok_chunks, self.ring_rows,
+                         chunks[0].neworder.w.shape[1]),
+                        dtype=torch.bool, device=eng.device),
+            torch.zeros((1,), dtype=torch.int64, device=eng.device))
+        return ring, self.init_counters(), oks
+
+    def _prepare(self, key: tuple, kept: _Kept | None, live, chunks,
+                 oks: OkBuffer | None, span) -> dict:
+        """The call's graphs: the kept ones, their replays reset to this
+        call's, or on a miss new ones (:meth:`_capture`), kept with
+        ``live`` and ``oks`` under ``key`` once every one is captured."""
+        if kept is not None:
+            graphs = kept.graphs
+            for g in graphs.values():
+                g.replays = 0
+        else:
+            graphs = self._capture(live, chunks, oks, span)
+            self._kept = _Kept(key, live, oks, graphs)
+        self._start(graphs)
         return graphs
 
     def _execute(self, graphs, state, ring, counters, esc, chunk,
@@ -436,7 +539,9 @@ class FusedExecutor:
         live = (state, ring, counters, esc)
         self.last_run = {}
         self._warm(*live, chunk)
-        self._execute(self._prepare(*live, [chunk]), *live, chunk)
+        graphs = self._capture(live, [chunk])
+        self._start(graphs)
+        self._execute(graphs, *live, chunk)
         self._finish_events()
 
     def megastep(self, state: TPCCState, ring: OutboxRing,
@@ -527,8 +632,11 @@ class FusedExecutor:
             warmup: bool = True, obs=None
             ) -> tuple[TPCCState, MixCounters, float]:
         """Drive every chunk, one drain after each, one host sync at the
-        end. Returns (state, counters, wall_seconds); wall time excludes
-        the warm-up and the captures.
+        end. Returns (state, counters, wall_seconds): the counters a copy,
+        the wall time without the warm-up and the captures. On the card
+        the graphs are captured when the key changes (:meth:`_key`: the
+        first call, or new tables, batch shapes or Payment rounds), else
+        the last call's are replayed on its ring and counters, zeroed.
 
         ``obs`` (a ``repro_torch.obs.ObsSession``) wraps each replay and
         each drain in a tracer span and, when the session wants metrics,
@@ -546,21 +654,19 @@ class FusedExecutor:
             for c in chunks:
                 self._check_len(c)
             eng = self.engine
-            with call_span("release"):
-                self.last_run = {}
+            state = eng.shard_state(state)
+            key = self._key(state, None, chunks, None)
+            kept = self._release(key, call_span)
             with call_span("buffers"):
-                state = eng.shard_state(state)
-                ring = self.init_ring(
-                    chunks[0].neworder.w.shape[1] // eng.n_shards)
-                counters = self.init_counters()
+                ring, counters, _ = self._buffers(kept, chunks, None)
                 metrics = self._metrics(obs)
                 live = self._live_lanes(metrics)
             if warmup:
                 with call_span("warm"):
                     self._warm_drain(state, ring, None)
                     self._warm(state, ring, counters, None, chunks[0])
-            graphs = self._prepare(state, ring, counters, None, chunks,
-                                   span=call_span)
+            graphs = self._prepare(key, kept, (state, ring, counters, None),
+                                   chunks, None, call_span)
             with call_span("loop-wait"):
                 synchronize(eng.device)
         t0 = time.perf_counter()
@@ -580,6 +686,7 @@ class FusedExecutor:
         wall = time.perf_counter() - t0
         with call_span("call-close"):
             self._finish_events()
+            counters = tpcc.copy_tree(counters)
             if metrics is not None:
                 for chunk in chunks:
                     metrics = obsm.record_chunk(metrics, chunk.neworder,
@@ -590,12 +697,13 @@ class FusedExecutor:
 
     def _spans(self, obs):
         """The session's span, and the span of the call's life cycle: its
-        set-up (``call-setup``: ``release``, ``buffers``, ``warm``, a
-        ``capture`` a graph with ``capture-wait``, ``collect``,
-        ``cache-release`` and ``graph-record``, then ``loop-wait``) and
-        its close after the wall clock stops (``call-close``); in
-        :meth:`run`, inside each timed ``outbox-drain``, the gather
-        (``outbox-gather``) and an ``owner-apply`` a shard. The second
+        set-up (``call-setup``: ``release``, ``buffers``, ``warm``, on a
+        key change a ``capture`` a graph with ``capture-wait``,
+        ``collect``, ``cache-release`` and ``graph-record``, then
+        ``loop-wait``) and its close after the wall clock stops
+        (``call-close``); in :meth:`run`, inside each timed
+        ``outbox-drain``, the gather (``outbox-gather``) and an
+        ``owner-apply`` a shard. The second
         is the first on the card and a null one on the CPU, which captures
         and waits for nothing and keeps the JAX package's phases. Both are
         null without a session (``nullcontext(phase)``)."""
@@ -679,9 +787,11 @@ class FusedExecutor:
         derives it instead, ticked once a chunk. ``obs`` as :meth:`run`
         takes it; with metrics the captured chunk also writes each step's
         commit mask into an :class:`OkBuffer` (the reference's scan ``ys``),
-        and each drain's cold rejects join the lattice after the loop.
+        and each drain's cold rejects join the lattice after the loop. The
+        graphs are captured when the key changes, as :meth:`run`'s are; the
+        escrow's tensors and a metrics-on run's chunk count are in it.
         Returns (state, esc, counters, wall_seconds, refreshes,
-        cold_rejects, retry)."""
+        cold_rejects, retry), the counters a copy."""
         span, call_span = self._spans(obs)
         with call_span("call-setup"):
             from .drivers import _adaptive_refresh_due
@@ -693,30 +803,26 @@ class FusedExecutor:
                 self._check_len(c)
             eng = self.engine
             use_retry = self.retry_cap > 0
-            with call_span("release"):
-                self.last_run = {}
+            bps = chunks[0].neworder.w.shape[1] // eng.n_shards
+            state = eng.shard_state(state)
+            ok_chunks = (len(chunks) if obs is not None and obs.wants_metrics
+                         else None)
+            key = self._key(state, esc, chunks, ok_chunks)
+            kept = self._release(key, call_span)
             with call_span("buffers"):
                 if use_retry:
                     retry = self.init_retry() if retry is None else \
                         tpcc.RetryState(*(x.to(eng.device).clone()
                                           for x in retry))
-                bps = chunks[0].neworder.w.shape[1] // eng.n_shards
-                state = eng.shard_state(state)
-                ring = self.init_ring(bps)
-                counters = self.init_counters()
+                ring, counters, oks = self._buffers(kept, chunks, ok_chunks)
                 metrics = self._metrics(obs)
-                oks = None if metrics is None else OkBuffer(
-                    torch.zeros((len(chunks), self.ring_rows,
-                                 chunks[0].neworder.w.shape[1]),
-                                dtype=torch.bool, device=eng.device),
-                    torch.zeros((1,), dtype=torch.int64, device=eng.device))
                 live = self._live_lanes(metrics)
             if warmup:
                 with call_span("warm"):
                     self._warm_drain(state, ring, esc, retry_max, reserve)
                     self._warm(state, ring, counters, esc, chunks[0], oks)
-            graphs = self._prepare(state, ring, counters, esc, chunks, oks,
-                                   call_span)
+            graphs = self._prepare(key, kept, (state, ring, counters, esc),
+                                   chunks, oks, call_span)
 
             adaptive = refresh_abort_rate is not None
             aborts_at_refresh = np.zeros(eng.n_shards, np.int64)
@@ -764,6 +870,7 @@ class FusedExecutor:
         wall = time.perf_counter() - t0
         with call_span("call-close"):
             self._finish_events()
+            counters = tpcc.copy_tree(counters)
             if metrics is not None:
                 if int(oks.cursor) != len(chunks):
                     raise RuntimeError(

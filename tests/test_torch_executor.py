@@ -24,8 +24,10 @@ test (R = 1 on one CPU device, R = 2 and 4 on simulated devices,
 none of it: a chunk longer than the ring is refused, a chunk calls no
 collective and each drain calls what the dispatch path's calls, the fixed
 buffers keep their addresses, Payment's static round count gives the
-floats of the dynamic one, the refresh writes into the live escrow, and
-the chunk body makes no host read (what lets a CUDA graph capture it).
+floats of the dynamic one, the refresh writes into the live escrow, the
+chunk body makes no host read (what lets a CUDA graph capture it), and a
+second call on the same tables keeps the first call's ring, counters and
+commit-mask buffer, zeroed, where new tables or batch shapes get new ones.
 
 Tolerance: exact, values and dtypes. Integers and bools are equal; so are
 the floats: the integer-valued adds (``s_ytd``, stock) are exact in any
@@ -683,6 +685,135 @@ def test_drain_lane_counters(monkeypatch, regime, R):
         assert 0 < live < remote_lines   # some orders abort
     else:
         assert live == remote_lines > 0
+
+
+def _kept_case(regime, R):
+    """An executor, its chunks, a state and escrow, and ``call(ex, state,
+    esc, chunks, obs=None)`` that runs them and returns (state, escrow,
+    counters)."""
+    strict = regime == "escrow"
+    e = _engine(R, **(dict(STRICT, hot_items=4, admission="kernel")
+                      if strict else {}))
+    ex = FusedExecutor(e, ring_rows=3)
+    chunks = _chunks(e, 7, 3, seed=11, remote_frac=0.3, item_skew=1.2)
+    state = tt.init_state(e.scale, device="cpu")
+    esc = e.init_escrow(state) if strict else None
+
+    def call(ex, state, esc, chunks, obs=None):
+        if strict:
+            s, esc, c, *_ = ex.run_escrow(state, esc, chunks, obs=obs)
+            return s, esc, c
+        s, c, _ = ex.run(state, chunks, obs=obs)
+        return s, None, c
+    return e, ex, chunks, state, esc, call
+
+
+def _kept_ptrs(ex):
+    _, ring, counters, _ = ex._kept.live
+    return [x.data_ptr() for x in (*ring, *counters)]
+
+
+def _trees_equal(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("R", [1, 2])
+@pytest.mark.parametrize("regime", ["merge", "escrow"])
+def test_second_call_reuses_the_ring_and_counters(regime, R):
+    """A second call on the same executor and tables keeps the first
+    call's ring and counters (the same addresses), zeroed: it ends where a
+    fresh executor's call on a copy of the tables ends, state, escrow and
+    counters bit for bit."""
+    e, ex, chunks, state, esc, call = _kept_case(regime, R)
+    state, esc, first = call(ex, state, esc, chunks)
+    assert int(first.neworders.sum()) > 0
+    ptrs = _kept_ptrs(ex)
+    copy = tt.copy_tree(state), None if esc is None else tt.copy_tree(esc)
+    s2, esc2, c2 = call(ex, state, esc, chunks)
+    assert _kept_ptrs(ex) == ptrs
+    want_s, want_esc, want_c = call(FusedExecutor(e, ring_rows=3), *copy,
+                                    chunks)
+    assert _trees_equal(s2, want_s) and _trees_equal(c2, want_c)
+    if esc is not None:
+        assert _trees_equal(esc2, want_esc)
+
+
+@pytest.mark.parametrize("R", [1, 2])
+@pytest.mark.parametrize("regime", ["merge", "escrow"])
+def test_returned_counters_outlive_the_next_call(regime, R):
+    """A call returns a copy of its counters: the next call's reset and
+    its own counts, on the kept buffers, leave the first call's values as
+    they were."""
+    e, ex, _, state, esc, call = _kept_case(regime, R)
+    chunks = _chunks(e, 6, 3, seed=13)                 # two chunks of 3
+    state, esc, first = call(ex, state, esc, chunks)
+    held = tt.copy_tree(first)
+    ptrs = _kept_ptrs(ex)
+    assert not set(ptrs) & {x.data_ptr() for x in first}
+    # one chunk, its graph recording the stream's rounds: the same key
+    one = [chunks[0]._replace(pay_rounds=max(c.pay_rounds for c in chunks))]
+    _, _, second = call(ex, state, esc, one)
+    assert _kept_ptrs(ex) == ptrs
+    assert _trees_equal(first, held)
+    assert 2 * int(second.neworders.sum() + second.aborts.sum()) == \
+        int(first.neworders.sum() + first.aborts.sum()) > 0
+
+
+@pytest.mark.parametrize("R", [1, 2])
+@pytest.mark.parametrize("regime", ["merge", "escrow"])
+def test_new_tables_or_batch_width_get_new_buffers(regime, R):
+    """The key sees the tables' addresses and the batch width: a call on
+    another state tensor, or at another batch width a shard, gets a new
+    ring and new counters, and ends as a fresh executor's call does."""
+    e, ex, chunks, state, esc, call = _kept_case(regime, R)
+    call(ex, state, esc, chunks)
+    old = ex._kept.live
+    other = tt.copy_tree(state)
+    other_esc = None if esc is None else tt.copy_tree(esc)
+    copy = tt.copy_tree(other), None if esc is None else tt.copy_tree(esc)
+    s, esc2, c = call(ex, other, other_esc, chunks)
+    assert not set(_kept_ptrs(ex)) & {x.data_ptr() for t in old[1:3]
+                                      for x in t}
+    want = call(FusedExecutor(e, ring_rows=3), *copy, chunks)
+    assert _trees_equal(s, want[0]) and _trees_equal(c, want[2])
+    if esc is not None:
+        assert _trees_equal(esc2, want[1])
+    old = ex._kept.live
+    wide = _chunks(e, 3, 3, bps=8, seed=12)
+    call(ex, other, other_esc, wide)
+    ring = ex._kept.live[1]
+    assert ring.valid.shape[1] == 8 * R * e.scale.max_lines
+    assert not set(_kept_ptrs(ex)) & {x.data_ptr() for t in old[1:3]
+                                      for x in t}
+
+
+@pytest.mark.parametrize("R", [1, 2])
+def test_metrics_on_escrow_call_keeps_its_ok_buffer(R):
+    """A metrics-on escrow call keeps its commit-mask buffer with the ring:
+    a second call with as many chunks reuses it, zeroed, and one with
+    another count gets a new one; each call's lattice equals a fresh
+    executor's on a copy of the tables."""
+    from repro_torch.obs import ObsSession
+
+    e, ex, chunks, state, esc, call = _kept_case("escrow", R)
+
+    def lattice(ex, state, esc, chunks):
+        obs = ObsSession(metrics=True, trace=False)
+        call(ex, state, esc, chunks, obs)
+        return [x for m in obs.device_metrics for x in m]
+
+    # two chunks of the same lengths (3 and 1) and Payment rounds
+    rounds = max(c.pay_rounds for c in chunks if c.chunk_len == 3)
+    fewer = [chunks[0]._replace(pay_rounds=rounds), chunks[2]]
+    oks = []
+    for part in (chunks, chunks, fewer):
+        copy = tt.copy_tree(state), tt.copy_tree(esc)
+        got = lattice(ex, state, esc, part)
+        oks.append(ex._kept.oks)
+        assert oks[-1].buf.shape[0] == len(part)
+        assert _trees_equal(got, lattice(FusedExecutor(e, ring_rows=3),
+                                         *copy, part))
+    assert oks[1] is oks[0] and oks[2] is not oks[1]
 
 
 # ---------------------------------------------------------------------------
